@@ -6,18 +6,32 @@
 Phases, each printing what it found:
   1. device: the card's name and power limit (nvidia-smi) and the seconds the
      CUDA kernels took to build from `wgpu_3dgs_viewer_app_tpu_torch/csrc`;
-  2. each kernel (K1 front-end, K2 entry sort, K3 compositor) against its
-     plain torch version on the card, at the shapes of the main path below,
-     with both times;
+  2. each kernel against its plain torch version on the card, with both
+     times: K1 front-end (ungated and with every gate), K2 entry sort and K3
+     compositor at the shapes of the config-1 path below; K4 query geometry
+     (ungated and with the mask and edit gates) at the config-3 shapes;
   3. the golden fixture rendered through the port's CLI on cuda, held to the
      repo's golden gate (`tests/test_golden.py::assert_golden_close`);
-  4. the main path: a 6M-splat scene at 1920x1080, SH degree 3, norm8 SH +
-     half cov3d, tile 32, max_dup 4, through `Viewer.render`: 2 warm-up and
-     5 timed frames; the launch counters must show all three kernels ran.
+  4. BASELINE config 1: a 6M-splat scene at 1920x1080, SH degree 3, norm8
+     SH + half cov3d, tile 32, max_dup 4, through `Viewer.render`: 2 warm-up
+     and 5 timed frames; the launch counters must show K1-K3 ran;
+  5. BASELINE config 3: selection and editing on a 2M-splat scene at the
+     same settings. Timed step (2 warm-up, 5 timed): the query geometry
+     (K4) -> `select_rect` -> `set_selection` -> a selection edit and
+     highlight -> `Viewer.render` (gated K1 -> K2 -> K3); the counters must
+     show K4 and K1 ran, and the gated K1 is held against its plain version
+     on the step's own gates. Then, once each and checked: a brush stroke (ADD),
+     a texture-mode resolve, `commit_selection_edit` and a render with the
+     per-splat edits, a `show_unedited` render (equal to the ungated one),
+     a render with half the splats masked, and hit queries at the centre.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero.
-Runs without a CUDA device, or outside the repo, fail before printing it.
+The line before the last two is the kernels' JSON record (each kernel's
+launches on its path, error against its plain version, times, least time
+the card could take for the same work, and a library call's time where one
+PyTorch call computes the same function); the next is nvidia-smi's name and
+power limit; the last is {"ok": true, "device": {...}}. Any failure raises
+and exits non-zero. Runs without a CUDA device, or outside the repo, fail
+before printing it.
 """
 
 from __future__ import annotations
@@ -42,7 +56,24 @@ KERNELS = {
              "wgpu_3dgs_viewer_app_tpu/ops/sort.py:779"),
     "composite": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/composite.cu",
                   "wgpu_3dgs_viewer_app_tpu/ops/composite.py:639"),
+    "geometry": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/geometry.cu",
+                 "wgpu_3dgs_viewer_app_tpu/ops/fused.py:693"),
 }
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes and f32 (non-tensor-core)
+# operations per millisecond.
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+F32_OPS_PER_MS = 67e12 / 1e3
+# Operations per unit of work, counted from the kernels' sources: K1 ~230
+# per splat (decode, transforms, EWA, extent, cull, pack, tight cull) plus
+# 4 per SH coefficient and channel, 40 per entry slot and ~110 per edit
+# applied; K4 ~150 per splat plus ~110 per edit; K2 ~34 integer operations
+# per live entry (liveness, 4 radix passes) and 1 per slot; K3 22 per
+# (pixel, entry) blend.
+K1_OPS_SPLAT, K1_OPS_SH, K1_OPS_SLOT, OPS_EDIT = 230, 4, 40, 110
+K4_OPS_SPLAT, K2_OPS_LIVE, K3_OPS_BLEND = 150, 34, 22
+
+CONFIG3_RECT = ((400.0, 200.0), (1400.0, 800.0))
 
 
 def log(msg: str) -> None:
@@ -71,7 +102,33 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main_path_scene():
+def nbytes(*tensors) -> int:
+    """Bytes of the given tensors (nested tuples and None allowed)."""
+    total = 0
+    for t in tensors:
+        if isinstance(t, (tuple, list)):
+            total += nbytes(*t)
+        elif t is not None and hasattr(t, "element_size"):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound(n_bytes: float, ops: float) -> tuple:
+    """Least time (ms) the card could take: bytes over HBM bandwidth or
+    operations over the f32 rate, whichever is larger."""
+    b, o = n_bytes / HBM_BYTES_PER_MS, ops / F32_OPS_PER_MS
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def pod_tensors(g, device):
+    from wgpu_3dgs_viewer_app_tpu_torch.data import (Compressions, flat_pod_to_words,
+                                                     pack_gaussians, pod_to_tensors)
+
+    comp = Compressions()
+    return comp, pod_to_tensors(flat_pod_to_words(pack_gaussians(g, comp), comp), device)
+
+
+def config1_scene():
     """BASELINE config 1: 6M random splats, camera at (0, 0, -6)."""
     from wgpu_3dgs_viewer_app_tpu_torch.core import CameraOrbitControl
     from wgpu_3dgs_viewer_app_tpu_torch.data import make_random_scene
@@ -80,56 +137,171 @@ def main_path_scene():
     return g, CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -6))
 
 
-def phase_kernels(g, cam, device) -> dict:
-    """Phase 2: each kernel against its plain version on the same inputs,
-    at the main path's shapes (1080p, tile 32, max_dup 4, default pod)."""
+def config3_scene():
+    """BASELINE config 3: 2M random splats, camera at (0, 0, -6)."""
+    from wgpu_3dgs_viewer_app_tpu_torch.core import CameraOrbitControl
+    from wgpu_3dgs_viewer_app_tpu_torch.data import make_random_scene
+
+    g = make_random_scene(2_000_000, seed=1, extent=2.0, scale_range=(0.004, 0.02))
+    return g, CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -6))
+
+
+def gates(n: int, device, seed: int = 3) -> dict:
+    """Every gate of the front-end, from one numpy seed: a mask keeping ~75%,
+    per-splat edits (off, on, hidden, override), a selection of ~half with a
+    selection edit, and a highlight."""
     import numpy as np
     import torch
 
-    from wgpu_3dgs_viewer_app_tpu_torch.data import (
-        Compressions, flat_pod_to_words, pack_gaussians, pod_to_tensors)
+    from wgpu_3dgs_viewer_app_tpu_torch.core.edit import EDIT_FLAG_ENABLED, GaussianEditPod
+
+    rng = np.random.default_rng(seed)
+    flags = rng.choice(np.uint32([0, 1, 1, 3, 5]), n).view(np.int32)
+    rgb = rng.uniform([-1.0, 0.5, 0.5], [1.0, 1.5, 1.5], (n, 3)).astype(np.float32)
+    params = rng.uniform([-0.3, -0.5, 0.5, 0.3], [0.3, 0.5, 2.0, 1.0], (n, 4)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return {
+        "mask_bits": t((rng.random(n) > 0.25).astype(np.uint8)),
+        "edit": (t(flags), t(rgb), t(params)),
+        "selection_bits": t((rng.random(n) > 0.5).astype(np.uint8)),
+        "selection_edit": GaussianEditPod(EDIT_FLAG_ENABLED, (0.15, 1.2, 1.0), 0.1, 0.2, 1.0,
+                                          0.8).as_arrays(),
+        "highlight_rgba": np.float32([1.0, 0.0, 1.0, 0.4]),
+    }
+
+
+def k1_bound(pod, out, gate_kw, n: int, d: int, sh_coeffs: int) -> tuple:
+    """K1's bound: every pod plane and gate read once, the entries written
+    once; operations counted per splat, SH coefficient, edit and slot."""
+    edits = (1 if "edit" in gate_kw else 0) + (1 if "selection_edit" in gate_kw else 0)
+    gate_tensors = [gate_kw.get(k) for k in ("mask_bits", "edit", "selection_bits")]
+    ops = n * (K1_OPS_SPLAT + K1_OPS_SH * 3 * sh_coeffs + OPS_EDIT * edits) + K1_OPS_SLOT * n * d
+    return bound(nbytes(list(pod.values()), out, gate_tensors), ops)
+
+
+def phase_kernels(g1, cam1, g3, cam3, device) -> dict:
+    """Phase 2: each kernel against its plain version on the same inputs.
+    K1-K3 at the config-1 shapes (1080p, tile 32, max_dup 4, default pod),
+    K4 at the config-3 shapes."""
+    import numpy as np
+    import torch
+
     from wgpu_3dgs_viewer_app_tpu_torch.ops import (
         TileConfig, composite_tiles_plain_v2, composite_tiles_v2, enumerate_entries_fused,
-        enumerate_entries_plain, sort_entries, sort_entries_plain)
-    from wgpu_3dgs_viewer_app_tpu_torch.testing import compare_entries, compare_sorted
+        enumerate_entries_plain, preprocess_geometry_fused, preprocess_geometry_plain,
+        sort_entries, sort_entries_plain)
+    from wgpu_3dgs_viewer_app_tpu_torch.testing import (compare_entries, compare_preprocess,
+                                                        compare_sorted)
 
-    w, h, n = 1920, 1080, g.count
-    comp = Compressions()
-    pod = pod_to_tensors(flat_pod_to_words(pack_gaussians(g, comp), comp), device)
-    view, proj = cam.view(), cam.projection(w / h)
+    w, h, n = 1920, 1080, g1.count
+    comp, pod = pod_tensors(g1, device)
+    view, proj = cam1.view(), cam1.projection(w / h)
+    eye = np.eye(4, dtype=np.float32)
     cfg = TileConfig(w, h, tile=32, max_dup=4)
-    args = (pod, comp, cfg, view, proj, np.eye(4, dtype=np.float32))
+    args = (pod, comp, cfg, view, proj, eye)
     rec = {}
 
+    # K1 ungated: the config-1 path.
     ent_k = enumerate_entries_fused(*args)
     ent_p = enumerate_entries_plain(*args)
     st = compare_entries(ent_k, ent_p, cfg)
     del ent_p
+    b_ms, b_by = k1_bound(pod, ent_k, {}, n, cfg.max_dup, 15)
     rec["fused"] = {"max_abs_err": st["max_field_step"],
                     "ms": cuda_ms(lambda: enumerate_entries_fused(*args), 20),
-                    "plain_ms": cuda_ms(lambda: enumerate_entries_plain(*args), 2)}
+                    "plain_ms": cuda_ms(lambda: enumerate_entries_plain(*args), 2),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     log(f"phase 2 K1 front-end: {n} splats, {st['live_a']} live entries, "
         f"{st['identical']:.6f} identical to plain, {st['differing']} within one step; "
-        f"kernel {rec['fused']['ms']:.3f} ms, plain {rec['fused']['plain_ms']:.3f} ms")
+        f"kernel {rec['fused']['ms']:.3f} ms, plain {rec['fused']['plain_ms']:.3f} ms, "
+        f"bound {b_ms:.3f} ms ({b_by})")
 
+    # K1 with every gate, same shapes.
+    gkw = gates(n, device)
+    ent_g = enumerate_entries_fused(*args, **gkw)
+    stg = compare_entries(ent_g, enumerate_entries_plain(*args, **gkw), cfg)
+    require(not torch.equal(ent_g, ent_k), "the gates changed no entry")
+    del ent_g
+    gb_ms, _ = k1_bound(pod, ent_k, gkw, n, cfg.max_dup, 15)
+    gated = {"gated_ms": cuda_ms(lambda: enumerate_entries_fused(*args, **gkw), 20),
+             "gated_plain_ms": cuda_ms(lambda: enumerate_entries_plain(*args, **gkw), 2),
+             "gated_bound_ms": gb_ms, "gated_max_abs_err": stg["max_field_step"]}
+    rec["fused"].update(gated)
+    rec["fused"]["max_abs_err"] = max(rec["fused"]["max_abs_err"], stg["max_field_step"])
+    del gkw
+    log(f"phase 2 K1 gated (mask, edits, selection edit, highlight): {stg['live_a']} live "
+        f"entries, {stg['identical']:.6f} identical to plain, {stg['differing']} within one step; "
+        f"kernel {gated['gated_ms']:.3f} ms, plain {gated['gated_plain_ms']:.3f} ms, "
+        f"bound {gb_ms:.3f} ms")
+
+    # K2.
     se_k = sort_entries(ent_k, cfg)
     compare_sorted(se_k, sort_entries_plain(ent_k, cfg))
+    keys = ent_k[:, 0].to(torch.int64) & 0xFFFFFFFF
+    live = keys != 0xFFFFFFFF
+    keys_live, ent_live = keys[live], ent_k[live]
+    del keys, live
+    n_live, e = se_k.n_valid, ent_k.shape[0]
+    b_ms, b_by = bound(nbytes(ent_k) + nbytes(se_k.entries, se_k.tile_starts, se_k.tile_counts),
+                       K2_OPS_LIVE * n_live + e)
     rec["sort"] = {"max_abs_err": 0,
                    "ms": cuda_ms(lambda: sort_entries(ent_k, cfg), 20),
-                   "plain_ms": cuda_ms(lambda: sort_entries_plain(ent_k, cfg), 3)}
-    log(f"phase 2 K2 entry sort: {ent_k.shape[0]} entries, {se_k.n_valid} live; keys "
-        f"bit-equal to torch.sort, payload multisets equal; kernel {rec['sort']['ms']:.3f} ms, "
-        f"plain {rec['sort']['plain_ms']:.3f} ms")
+                   "plain_ms": cuda_ms(lambda: sort_entries_plain(ent_k, cfg), 3),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": cuda_ms(
+                       lambda: ent_live[torch.sort(keys_live, stable=True).indices], 5)}
+    del keys_live, ent_live
+    log(f"phase 2 K2 entry sort: {e} entries, {n_live} live; keys bit-equal to torch.sort, "
+        f"payload multisets equal; kernel {rec['sort']['ms']:.3f} ms, plain "
+        f"{rec['sort']['plain_ms']:.3f} ms, torch.sort + gather of the live entries "
+        f"{rec['sort']['library_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
 
+    # K3.
     img_k = composite_tiles_v2(se_k, cfg)
-    img_p = composite_tiles_plain_v2(se_k, cfg)
+    work = {}
+    img_p = composite_tiles_plain_v2(se_k, cfg, stats=work)
     err = float((img_k - img_p).abs().max())
     require(err <= K3_TOL, f"K3 max abs {err} > {K3_TOL}")
+    b_ms, b_by = bound(nbytes(se_k.entries, se_k.tile_starts, se_k.tile_counts, img_k),
+                       K3_OPS_BLEND * work["pairs"])
     rec["composite"] = {"max_abs_err": err,
                         "ms": cuda_ms(lambda: composite_tiles_v2(se_k, cfg), 20),
-                        "plain_ms": cuda_ms(lambda: composite_tiles_plain_v2(se_k, cfg), 1)}
+                        "plain_ms": cuda_ms(lambda: composite_tiles_plain_v2(se_k, cfg), 1),
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     log(f"phase 2 K3 compositor: max abs {err:.3e} (<= {K3_TOL:.3e}) vs plain; kernel "
-        f"{rec['composite']['ms']:.3f} ms, plain {rec['composite']['plain_ms']:.3f} ms")
+        f"{rec['composite']['ms']:.3f} ms, plain {rec['composite']['plain_ms']:.3f} ms, "
+        f"{work['pairs']} blends needed, bound {b_ms:.3f} ms ({b_by})")
+    del ent_k, se_k, img_k, img_p, pod
+
+    # K4 at the config-3 shapes, ungated (the timed step) and gated.
+    n3 = g3.count
+    comp3, pod3 = pod_tensors(g3, device)
+    view3, proj3 = cam3.view(), cam3.projection(w / h)
+    gargs = (pod3, comp3, view3, proj3, eye, w, h)
+    geo_in = [pod3[k] for k in ("pos", "color0", "cov3d")]
+    g4 = {k: v for k, v in gates(n3, device, seed=5).items() if k in ("mask_bits", "edit")}
+    errs, times = [], {}
+    for name, kw in (("", {}), ("gated_", g4)):
+        pre_k = preprocess_geometry_fused(*gargs, **kw)
+        st4 = compare_preprocess(pre_k, preprocess_geometry_plain(*gargs, **kw))
+        errs.append(st4["max_abs_err"])
+        out_bytes = nbytes(*(getattr(pre_k, f) for f in pre_k.__dataclass_fields__))
+        times[f"{name}bound_ms"], by = bound(
+            nbytes(geo_in, kw.get("mask_bits"), kw.get("edit")) + out_bytes,
+            n3 * (K4_OPS_SPLAT + (OPS_EDIT if kw else 0)))
+        times[f"{name}ms"] = cuda_ms(lambda: preprocess_geometry_fused(*gargs, **kw), 20)
+        times[f"{name}plain_ms"] = cuda_ms(lambda: preprocess_geometry_plain(*gargs, **kw), 3)
+        times[f"{name}bound_by"] = by
+        log(f"phase 2 K4 query geometry{' gated (mask, edits)' if kw else ''}: {n3} splats, "
+            f"{st4['valid']} valid, validity {st4['valid_equal']:.6f} equal to plain, fields "
+            f"{st4['identical']:.6f} bit-identical, max abs {st4['max_abs_err']:.3e}; kernel "
+            f"{times[f'{name}ms']:.3f} ms, plain {times[f'{name}plain_ms']:.3f} ms, bound "
+            f"{times[f'{name}bound_ms']:.4f} ms ({by})")
+    rec["geometry"] = {"max_abs_err": max(errs), "ms": times["ms"], "plain_ms": times["plain_ms"],
+                       "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
+                       "library_ms": None, "gated_ms": times["gated_ms"],
+                       "gated_plain_ms": times["gated_plain_ms"],
+                       "gated_bound_ms": times["gated_bound_ms"]}
     return rec
 
 
@@ -161,7 +333,18 @@ def phase_golden(work_dir: str) -> None:
         f"{d.mean():.4f} u8, max {d.max()} u8 -> assert_golden_close passed")
 
 
-def phase_main_path(g, cam, device, smi: str, rec: dict) -> dict:
+def check_frame(img, what: str, min_coverage: float = 0.2) -> float:
+    """Shape, finite values and the share of covered pixels of a frame."""
+    import torch
+
+    require(img.shape == (1080, 1920, 3), f"{what}: image shape {tuple(img.shape)}")
+    require(bool(torch.isfinite(img).all()), f"{what}: non-finite pixels")
+    coverage = float((img.amax(dim=-1) > 1.0 / 255.0).float().mean())
+    require(coverage > min_coverage, f"{what}: only {coverage:.3f} of pixels covered")
+    return coverage
+
+
+def phase_config1(g, cam, device, smi: str, rec: dict) -> dict:
     """Phase 4: BASELINE config 1 through Viewer.render."""
     import torch
 
@@ -185,17 +368,212 @@ def phase_main_path(g, cam, device, smi: str, rec: dict) -> dict:
     ms = (time.perf_counter() - t1) * 1e3 / frames
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    for name, count in launches.items():
-        require(count >= 1, f"kernel {name} never launched on the main path: {launches}")
-    require(img.shape == (1080, 1920, 3), f"image shape {tuple(img.shape)}")
-    require(bool(torch.isfinite(img).all()), "non-finite pixels")
-    coverage = float((img.amax(dim=-1) > 1.0 / 255.0).float().mean())
-    require(coverage > 0.2, f"only {coverage:.3f} of pixels covered")
-    rest = ms - sum(r["ms"] for r in rec.values())
-    log(f"phase 4 main path: {g.count} splats at 1920x1080, SH 3, norm8/half, tile 32, "
+    for name in ("fused", "sort", "composite"):
+        require(launches[name] >= 1, f"kernel {name} never launched on the config-1 path: "
+                                     f"{launches}")
+    coverage = check_frame(img, "config 1")
+    rest = ms - sum(rec[k]["ms"] for k in ("fused", "sort", "composite"))
+    log(f"phase 4 config 1: {g.count} splats at 1920x1080, SH 3, norm8/half, tile 32, "
         f"max_dup 4: {ms:.3f} ms/frame over {frames} frames ({rest:.3f} ms outside the three "
         f"kernels' phase-2 times), peak {peak:.2f} GiB, coverage {coverage:.3f}, launches "
         f"{launches}, viewer set-up {setup:.1f} s [{smi}]")
+    return launches
+
+
+def config3_pods():
+    """Config 3's selection edit and highlight, as bench.py's config 3 sets them."""
+    from wgpu_3dgs_viewer_app_tpu_torch.core.edit import (EDIT_FLAG_ENABLED, GaussianEditPod,
+                                                          SelectionHighlightPod)
+
+    return (GaussianEditPod(EDIT_FLAG_ENABLED, (0.15, 1.2, 1.0), 0.1, 0.2, 1.0, 1.0),
+            SelectionHighlightPod((1.0, 0.0, 1.0, 0.4)))
+
+
+def config3_step(v):
+    """The config-3 step on a single-model viewer whose camera is set: query
+    geometry (K4) -> select_rect -> set_selection -> selection edit and
+    highlight -> Viewer.render. Returns step() -> (frame, geometry, bits);
+    phase 5 times it and scripts/profile_port_frame.py profiles it."""
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import preprocess_geometry_fused
+    from wgpu_3dgs_viewer_app_tpu_torch.query import select_rect
+
+    m = v.models["model"]
+    sel_edit, highlight = config3_pods()
+
+    def step():
+        pre = preprocess_geometry_fused(m.buffers.pod, v.comp, v._view, v._proj,
+                                        m.transform.matrix(), v.cfg.width, v.cfg.height,
+                                        display_mode=0)
+        bits = select_rect(pre, *CONFIG3_RECT)
+        m.buffers.set_selection(bits)
+        v.update_selection_edit(sel_edit)
+        v.update_selection_highlight(highlight, True)
+        return v.render(), pre, bits
+
+    return step
+
+
+def phase_config3(g, cam, device, smi: str, rec: dict) -> dict:
+    """Phase 5: BASELINE config 3, selection and editing, through the
+    entry points a user calls."""
+    import numpy as np
+    import torch
+
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import (build_sorted_entries_fused, composite_tiles_v2,
+                                                    enumerate_entries_fused,
+                                                    enumerate_entries_plain, kernels,
+                                                    over_background, preprocess_geometry_fused)
+    from wgpu_3dgs_viewer_app_tpu_torch.query import (
+        MeasurementHitMethod, QuerySelectionOp, QueryToolset, apply_query_pod, combine_selection,
+        query_hit, sample_texture_at_centers, select_rect)
+    from wgpu_3dgs_viewer_app_tpu_torch.testing import compare_entries
+    from wgpu_3dgs_viewer_app_tpu_torch.viewer import Viewer
+
+    w, h = 1920, 1080
+    t0 = time.perf_counter()
+    v = Viewer(g, w, h, tile=32, max_dup=4, device=device)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    m = v.models["model"]
+    b = m.buffers
+    v.update_camera(cam)
+    sel_edit, highlight = config3_pods()
+    step = config3_step(v)
+
+    def geometry(**kw):
+        return preprocess_geometry_fused(b.pod, v.comp, v._view, v._proj, m.transform.matrix(),
+                                         w, h, display_mode=0, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    frames = 5
+    t1 = time.perf_counter()
+    for _ in range(frames):
+        img, pre, bits = step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3 / frames
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name in ("geometry", "fused", "sort", "composite"):
+        require(launches[name] >= 1, f"kernel {name} never launched on the config-3 path: "
+                                     f"{launches}")
+    coverage = check_frame(img, "config 3")
+    selected = int(bits.sum())
+    require(0 < selected < g.count, f"{selected} splats selected")
+
+    # Gated K1 against its plain version on the timed step's own inputs and
+    # gates (selection bits, selection edit, highlight), and the K1 and K4
+    # times at these shapes.
+    gt = v.gaussian_transform
+    fe_args = (b.pod, v.comp, v.cfg, v._view, v._proj, m.transform.matrix())
+    fe_kw = dict(sh_degree=gt.sh_deg.degree, no_sh0=gt.no_sh0, size=gt.size,
+                 display_mode=int(gt.display_mode), **v._gating_kwargs(m, False))
+    require(fe_kw.keys() >= {"selection_bits", "selection_edit", "highlight_rgba"},
+            f"the step's gates: {sorted(fe_kw)}")
+    st1 = compare_entries(enumerate_entries_fused(*fe_args, **fe_kw),
+                          enumerate_entries_plain(*fe_args, **fe_kw), v.cfg)
+    k1_ms = cuda_ms(lambda: enumerate_entries_fused(*fe_args, **fe_kw), 20)
+    k4_ms = cuda_ms(geometry, 20)
+    rec["fused"]["max_abs_err"] = max(rec["fused"]["max_abs_err"], st1["max_field_step"])
+    rec["fused"]["config3_gated_ms"] = k1_ms
+    rec["geometry"]["config3_ms"] = k4_ms
+    log(f"phase 5 gated K1 on the step's gates: {st1['live_a']} live entries, "
+        f"{st1['identical']:.6f} identical to plain, {st1['differing']} within one step; "
+        f"K1 {k1_ms:.3f} ms, K4 {k4_ms:.3f} ms at 2M splats [{smi}]")
+
+    # The ungated frame: the same front-end, sort and compositor, no gates.
+    def ungated():
+        se = build_sorted_entries_fused(b.pod, v.comp, v.cfg, v._view, v._proj,
+                                        m.transform.matrix())
+        return over_background(composite_tiles_v2(se, v.cfg), v.background)
+
+    plain = ungated()
+    (x0, y0), (x1, y1) = CONFIG3_RECT
+    far = torch.ones((h, w), dtype=torch.bool, device=img.device)
+    far[int(y0) - 100:int(y1) + 100, int(x0) - 100:int(x1) + 100] = False
+    require(torch.equal(img[far], plain[far]), "the selection edit changed pixels far outside "
+                                               "the selected rect")
+    inside = (img - plain)[int(y0) + 50:int(y1) - 50, int(x0) + 50:int(x1) - 50].abs().mean()
+    require(float(inside) > 0.02, f"the selection edit barely changed the rect: {float(inside)}")
+    log(f"phase 5 config 3: {g.count} splats at 1920x1080, SH 3, norm8/half, tile 32, "
+        f"max_dup 4; step = K4 geometry -> select_rect{CONFIG3_RECT} -> set_selection -> "
+        f"selection edit + highlight -> Viewer.render: {ms:.3f} ms/frame over {frames} frames "
+        f"(K4 {k4_ms:.3f} ms and gated K1 {k1_ms:.3f} ms of it), {selected} splats selected, "
+        f"peak {peak:.2f} GiB, coverage {coverage:.3f}, launches {launches}, viewer set-up "
+        f"{setup:.1f} s; pixels 100 px outside the rect equal to the ungated frame, mean change "
+        f"inside {float(inside):.4f} [{smi}]")
+
+    # Brush stroke, ADD: immediate mode, pods applied to the selection.
+    ts = QueryToolset(w, h, device=device)
+    ts.update_brush_radius(30.0)
+    ts.start(QueryToolset.BRUSH, QuerySelectionOp.ADD, (200.0, 900.0))
+    ts.update_pos((1700.0, 950.0))
+    ts.end()
+    sel = b.selection
+    for pod in ts.query():
+        sel = apply_query_pod(pre, sel, pod)
+    added = int(sel.sum()) - selected
+    require(added > 0 and bool((sel >= b.selection).all()), f"brush ADD added {added}")
+    b.set_selection(sel)
+
+    # Texture mode: a rect painted into the query texture, resolved at end().
+    ts.set_use_texture(True)
+    ts.start(QueryToolset.RECT, QuerySelectionOp.ADD, (1400.0, 300.0))
+    ts.update_pos((1650.0, 800.0))
+    op, tex = ts.end()
+    tex_bits = sample_texture_at_centers(pre, tex)
+    rect_bits = select_rect(pre, (1400.0, 300.0), (1650.0, 800.0))
+    mismatch = int((tex_bits != rect_bits).sum())
+    require(int(tex_bits.sum()) > 0 and mismatch <= 0.01 * int(rect_bits.sum()),
+            f"texture resolve: {int(tex_bits.sum())} vs {int(rect_bits.sum())} by rect")
+    b.set_selection(combine_selection(b.selection, tex_bits, op))
+    n_sel = int(b.selection.sum())
+
+    # Commit: per-splat edits equal the live selection edit, bit for bit.
+    live = v.render()
+    b.commit_selection_edit(*sel_edit.as_arrays())
+    v.update_selection_edit(None)
+    committed = v.render()
+    require(torch.equal(live, committed), "committed edits render unlike the live selection edit")
+
+    # show_unedited without highlight or mask: the ungated frame.
+    v.update_selection_highlight(highlight, False)
+    unedited = v.render(show_unedited=True)
+    require(torch.equal(unedited, ungated()), "show_unedited differs from the ungated frame")
+    edited = v.render()
+    require(not torch.equal(unedited, edited), "the committed edits change nothing")
+
+    # Half the splats masked.
+    b.set_mask((np.arange(g.count) % 2).astype(np.uint8))
+    masked = v.render()
+    cov_masked = check_frame(masked, "masked", min_coverage=0.1)
+    require(not torch.equal(masked, edited), "the mask changed nothing")
+    kernels.reset_launch_counts()
+    masked_pre = geometry(mask_bits=b.mask, edit=(b.edit_flags, b.edit_rgb, b.edit_params))
+    require(kernels.LAUNCHES["geometry"] == 1, "gated K4 did not launch")
+    n_valid, n_all = int(masked_pre.valid.sum()), int(pre.valid.sum())
+    require(abs(n_valid - n_all / 2) <= 0.01 * n_all, f"{n_valid} of {n_all} valid, half masked")
+
+    # Hit queries at the centre, both methods, against the same query on the CPU.
+    hits = []
+    for method in MeasurementHitMethod:
+        found, pos = query_hit(masked_pre, (w / 2, h / 2), v._view, v._proj, w, h, method)
+        cpu_pre = type(masked_pre)(**{f: getattr(masked_pre, f).cpu()
+                                      for f in masked_pre.__dataclass_fields__})
+        found_c, pos_c = query_hit(cpu_pre, (w / 2, h / 2), v._view, v._proj, w, h, method)
+        require(bool(found) == bool(found_c), f"{method}: found differs from the CPU")
+        require(bool(found), f"{method}: no hit at the centre of a dense scene")
+        d = float((pos.cpu() - pos_c).abs().max())
+        require(d <= 1e-4, f"{method}: position differs from the CPU by {d}")
+        hits.append(f"{method.value} {pos.cpu().numpy().round(4).tolist()}")
+    log(f"phase 5 checks: brush ADD +{added} splats; texture resolve {int(tex_bits.sum())} "
+        f"(select_rect {int(rect_bits.sum())}, {mismatch} differ); selection now {n_sel}; "
+        f"committed edits == live selection edit; show_unedited == ungated; half masked: "
+        f"coverage {cov_masked:.3f}, {n_valid} valid in gated K4; hits at the centre: "
+        f"{'; '.join(hits)}")
     return launches
 
 
@@ -221,22 +599,26 @@ def main() -> int:
     log(f"phase 1 device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"kernel build {build:.1f} s (nvcc {kernels.build_seconds or 0.0:.1f} s)")
 
-    g, cam = main_path_scene()
-    rec = phase_kernels(g, cam, device)
+    g1, cam1 = config1_scene()
+    g3, cam3 = config3_scene()
+    rec = phase_kernels(g1, cam1, g3, cam3, device)
     torch.cuda.empty_cache()
     # Scratch files of phase 3 go to the git-ignored build directory.
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="smoke_", dir=kernels.BUILD_DIR) as work_dir:
         phase_golden(work_dir)
-    launches = phase_main_path(g, cam, device, smi, rec)
+    launches = phase_config1(g1, cam1, device, smi, rec)
+    del g1
+    torch.cuda.empty_cache()
+    launches["geometry"] = phase_config3(g3, cam3, device, smi, rec)["geometry"]
 
     out = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": launches[name], "max_abs_err": r["max_abs_err"],
-                    "ms": r["ms"], "plain_ms": r["plain_ms"]})
-    require(all(math.isfinite(k["ms"]) for k in out), f"non-finite time in {out}")
+                    "launches": launches[name], **r})
+    require(all(math.isfinite(k["ms"]) and math.isfinite(k["bound_ms"]) for k in out),
+            f"non-finite time in {out}")
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

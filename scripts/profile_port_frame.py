@@ -1,0 +1,81 @@
+#!/usr/bin/env python3
+"""Where the time of one port frame goes on the GPU: torch.profiler over a
+few frames of a BASELINE cell, device time per kernel and the idle share.
+
+    python3 scripts/profile_port_frame.py --config 1   # 6M splats, Viewer.render
+    python3 scripts/profile_port_frame.py --config 3   # 2M splats, select + edit step
+
+Config 1 is the plain orbit frame; config 3 is the selection-and-editing
+step that `chip_smoke.py` phase 5 times (`chip_smoke.config3_step`: query
+geometry -> select_rect -> set_selection -> selection edit + highlight ->
+Viewer.render). Both at
+1920x1080, SH 3, norm8 SH + half cov3d, tile 32, max_dup 4. Prints one line
+per kernel (ms per frame, share of device time), the device's busy and
+wall time over the profiled frames, and the card's name and power limit.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+
+def main() -> int:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import kernels
+    from wgpu_3dgs_viewer_app_tpu_torch.viewer import Viewer
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", type=int, choices=(1, 3), default=3)
+    ap.add_argument("--frames", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_port_frame: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          "-i", "0"], capture_output=True, text=True, check=True).stdout.strip()
+    kernels.library()
+    g, cam = chip_smoke.config1_scene() if args.config == 1 else chip_smoke.config3_scene()
+    v = Viewer(g, 1920, 1080, tile=32, max_dup=4, device="cuda")
+    v.update_camera(cam)
+    step = v.render if args.config == 1 else chip_smoke.config3_step(v)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.frames):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # Device-side events only: the host ops that launched them carry the
+    # same device time and would count it twice.
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in rows)
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    print(f"config {args.config}: {g.count} splats, {args.frames} frames, {wall:.3f} ms wall "
+          f"({wall / args.frames:.3f} ms/frame under the profiler), device busy {busy:.3f} ms, "
+          f"idle share {1 - busy / wall:.3f}")
+    for name, ms, count in sorted(rows, key=lambda r: -r[1]):
+        print(f"  {ms / args.frames:8.3f} ms/frame  {ms / busy:6.1%}  x{count // args.frames:<3d} "
+              f"{name[:90]}")
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

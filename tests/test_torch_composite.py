@@ -11,10 +11,13 @@ from wgpu_3dgs_viewer_app_tpu.ops import binning as jbin
 from wgpu_3dgs_viewer_app_tpu.ops.composite import composite_tiles_pallas_v2
 from wgpu_3dgs_viewer_app_tpu_torch.convert import sorted_entries_from_jax, sorted_entries_to_jax
 from wgpu_3dgs_viewer_app_tpu_torch.core import CameraOrbitControl
+from wgpu_3dgs_viewer_app_tpu_torch.core.f16 import u32
 from wgpu_3dgs_viewer_app_tpu_torch.data import (
     Compressions, flat_pod_to_words, make_random_scene, pack_gaussians, pod_to_tensors)
 from wgpu_3dgs_viewer_app_tpu_torch.ops import (
     TileConfig, build_sorted_entries_fused, composite_tiles_v2, preprocess)
+from wgpu_3dgs_viewer_app_tpu_torch.ops.composite import (
+    ALPHA_EPS, T_EPS, _decode, composite_tiles_plain_v2)
 from wgpu_3dgs_viewer_app_tpu_torch.ops.rasterize_ref import rasterize_reference
 
 # The reference stops at 128-entry chunks; any other early-exit point
@@ -59,6 +62,39 @@ def test_sorted_entries_roundtrip():
     assert torch.equal(back.entries[: se.n_valid], se.entries)
     assert torch.equal(back.tile_starts, se.tile_starts)
     assert torch.equal(back.tile_counts, se.tile_counts)
+
+
+def test_blend_counter_counts_each_pixels_needed_entries():
+    """The plain compositor's `stats["pairs"]` (K3's operation count) against
+    a direct count: for each pixel inside the image, its tile's live entries
+    in order while the pixel's own T before the entry is > T_EPS. The direct
+    count takes T as one f64 product, the compositor as f32 products per
+    128-entry chunk, so pixels within rounding of the cut may differ: within
+    1e-3 of the count. The scene is dense enough that saturated pixels skip
+    over a tenth of the (in-image pixel, live entry) pairs."""
+    se, cfg, _ = _entries(1500, 72, 56, 16, 8, extent=0.8, scale_range=(0.05, 0.15))
+    stats = {}
+    composite_tiles_plain_v2(se, cfg, stats=stats)
+    ent = u32(se.entries)
+    lane = torch.arange(cfg.tile * cfg.tile)
+    lx, ly = lane % cfg.tile, lane // cfg.tile
+    want = every = 0
+    for t in range(cfg.n_tiles):
+        s, n = int(se.tile_starts[t]), int(se.tile_counts[t])
+        x, y = (t % cfg.tiles_x) * cfg.tile + lx, (t // cfg.tiles_x) * cfg.tile + ly
+        inside = ((x < cfg.width) & (y < cfg.height))[:, None]
+        if n == 0:
+            continue
+        op, mx, my, a2, b2, c2, *_ = _decode(ent[s:s + n], torch.ones(n, dtype=torch.bool))
+        dx = (lx.to(torch.float32) + 0.5)[:, None] - mx
+        dy = (ly.to(torch.float32) + 0.5)[:, None] - my
+        a = op * torch.exp2(torch.clamp_max((a2 * dx + b2 * dy) * dx + (c2 * dy) * dy, 0.0))
+        a = torch.where(a < ALPHA_EPS, 0.0, a).to(torch.float64)
+        t_before = torch.cumprod(torch.cat([torch.ones_like(a[:, :1]), 1.0 - a[:, :-1]], 1), 1)
+        want += int(((t_before > T_EPS) & inside).sum())
+        every += int(inside.sum()) * n
+    assert abs(stats["pairs"] - want) <= 1e-3 * want, (stats["pairs"], want)
+    assert 0 < stats["pairs"] < 0.9 * every, (stats["pairs"], every)
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2])

@@ -1,5 +1,7 @@
 """Card tests: each hand-written CUDA kernel against its plain torch version
-on the same CUDA tensors, and the whole slice on the card against the CPU.
+on the same CUDA tensors (the front-end K1 ungated and gated, the entry
+sort K2, the compositor K3, the query geometry K4), the wrappers' input
+checks, and the whole slice on the card against the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -17,14 +19,16 @@ import torch
 
 from test_golden import assert_golden_close
 from wgpu_3dgs_viewer_app_tpu_torch.core import CameraOrbitControl
+from wgpu_3dgs_viewer_app_tpu_torch.core import edit as tedit
 from wgpu_3dgs_viewer_app_tpu_torch.data import (
     ALL_COMPRESSIONS, flat_pod_to_words, make_random_scene, pack_gaussians, pod_to_tensors,
     read_ply)
 from wgpu_3dgs_viewer_app_tpu_torch.ops import (
     SENTINEL, TileConfig, build_sorted_entries_fused, composite_tiles_plain_v2,
     composite_tiles_v2, enumerate_entries_fused, enumerate_entries_plain, kernels,
-    sort_entries, sort_entries_plain)
-from wgpu_3dgs_viewer_app_tpu_torch.testing import compare_entries, compare_sorted
+    preprocess_geometry_fused, preprocess_geometry_plain, sort_entries, sort_entries_plain)
+from wgpu_3dgs_viewer_app_tpu_torch.testing import (compare_entries, compare_preprocess,
+                                                    compare_sorted)
 from wgpu_3dgs_viewer_app_tpu_torch.viewer import Viewer
 
 pytestmark = pytest.mark.cuda
@@ -71,6 +75,105 @@ def test_frontend_kernel_matches_plain(dev, ci, deg, mode, d):
                                   display_mode=mode)
     stats = compare_entries(got, ref, cfg)
     assert stats["live_a"] > 1000, stats
+
+
+SEL_EDIT = tedit.GaussianEditPod(tedit.EDIT_FLAG_ENABLED, (0.15, 1.2, 1.0), 0.1, 0.2, 1.0, 0.8)
+HIGHLIGHT = np.float32([1.0, 0.0, 1.0, 0.4])
+GATE_PATTERNS = {"mask": ("mask",), "edit": ("edit",), "sel_edit": ("sel_edit",),
+                 "highlight": ("highlight",), "sel_edit+highlight": ("sel_edit", "highlight"),
+                 "all": ("mask", "edit", "sel_edit", "highlight")}
+
+
+def _gates(n, dev, which, seed=3):
+    """Gate tensors in the dtypes the kernels read, from one numpy seed."""
+    rng = np.random.default_rng(seed)
+    kw = {}
+    if "mask" in which:
+        kw["mask_bits"] = torch.from_numpy((rng.random(n) > 0.25).astype(np.uint8)).to(dev)
+    if "edit" in which:
+        flags = rng.choice(np.uint32([0, 1, 1, 3, 5]), n).view(np.int32)
+        rgb = rng.uniform([-1.0, 0.5, 0.5], [1.0, 1.5, 1.5], (n, 3)).astype(np.float32)
+        params = rng.uniform([-0.3, -0.5, 0.5, 0.3], [0.3, 0.5, 2.0, 1.0], (n, 4))
+        params = params.astype(np.float32)
+        kw["edit"] = tuple(torch.from_numpy(a).to(dev) for a in (flags, rgb, params))
+    if "sel_edit" in which or "highlight" in which:
+        kw["selection_bits"] = torch.from_numpy((rng.random(n) > 0.5).astype(np.uint8)).to(dev)
+    if "sel_edit" in which:
+        kw["selection_edit"] = SEL_EDIT.as_arrays()
+    if "highlight" in which:
+        kw["highlight_rgba"] = HIGHLIGHT
+    return kw
+
+
+@pytest.mark.parametrize("pattern", list(GATE_PATTERNS))
+def test_gated_frontend_kernel_matches_plain(dev, pattern):
+    """Gated K1 vs the gated plain preprocess + enumerate, each gate alone
+    and together (default compression, SH 3, 1080p, tile 32, max_dup 4)."""
+    comp = ALL_COMPRESSIONS[5]
+    pod = _pod(comp, 20000, dev, seed=7)
+    cfg = TileConfig(1920, 1080, tile=32, max_dup=4)
+    view, proj = _camera(1920, 1080)
+    gates = _gates(20000, dev, GATE_PATTERNS[pattern])
+    before = kernels.LAUNCHES["fused"]
+    got = enumerate_entries_fused(pod, comp, cfg, view, proj, EYE, **gates)
+    assert kernels.LAUNCHES["fused"] == before + 1
+    ref = enumerate_entries_plain(pod, comp, cfg, view, proj, EYE, **gates)
+    stats = compare_entries(got, ref, cfg)
+    assert stats["live_a"] > 1000, stats
+    ungated = enumerate_entries_fused(pod, comp, cfg, view, proj, EYE)
+    assert not torch.equal(got, ungated)
+
+
+@pytest.mark.parametrize("ci", range(8), ids=lambda i: f"{ALL_COMPRESSIONS[i].sh.value}-"
+                                                      f"{ALL_COMPRESSIONS[i].cov3d.value}")
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
+def test_geometry_kernel_matches_plain(dev, ci, mode, gated):
+    """K4 vs the plain preprocess at SH degree 0 (`compare_preprocess`):
+    all compressions, the three display modes, with and without the mask
+    and per-splat edit gates."""
+    comp = ALL_COMPRESSIONS[ci]
+    pod = _pod(comp, 20000, dev, seed=ci)
+    view, proj = _camera(1920, 1080)
+    gates = _gates(20000, dev, ("mask", "edit")) if gated else {}
+    before = kernels.LAUNCHES["geometry"]
+    got = preprocess_geometry_fused(pod, comp, view, proj, EYE, 1920, 1080, display_mode=mode,
+                                    **gates)
+    assert kernels.LAUNCHES["geometry"] == before + 1
+    ref = preprocess_geometry_plain(pod, comp, view, proj, EYE, 1920, 1080, display_mode=mode,
+                                    **gates)
+    stats = compare_preprocess(got, ref)
+    assert stats["valid"] > 1000, stats
+
+
+def test_gate_wrappers_reject_bad_inputs(dev):
+    """Gate tensors of the wrong dtype, shape or device are refused by K1's
+    and K4's wrappers, before any launch."""
+    comp = ALL_COMPRESSIONS[5]
+    n = 1000
+    pod = _pod(comp, n, dev)
+    cfg = TileConfig(256, 256, tile=32, max_dup=4)
+    view, proj = _camera(256, 256)
+    good = _gates(n, dev, ("mask", "edit", "sel_edit", "highlight"))
+    flags, rgb, params = good["edit"]
+    bad = [
+        ({"mask_bits": good["mask_bits"].bool()}, "mask_bits"),
+        ({"mask_bits": good["mask_bits"][:-1]}, "mask_bits"),
+        ({"mask_bits": good["mask_bits"].cpu()}, "mask_bits"),
+        ({"edit": (flags.long(), rgb, params)}, "edit flags"),
+        ({"edit": (flags, rgb[:, :2].contiguous(), params)}, "edit rgb"),
+        ({"edit": (flags, rgb, params.cpu())}, "edit params"),
+        ({"selection_bits": good["selection_bits"].float(), "highlight_rgba": HIGHLIGHT},
+         "selection_bits"),
+    ]
+    before = dict(kernels.LAUNCHES)
+    for kw, name in bad:
+        with pytest.raises(ValueError, match=name):
+            enumerate_entries_fused(pod, comp, cfg, view, proj, EYE, **kw)
+        if "selection_bits" not in kw:
+            with pytest.raises(ValueError, match=name):
+                preprocess_geometry_fused(pod, comp, view, proj, EYE, 256, 256, **kw)
+    assert kernels.LAUNCHES == before
 
 
 def _entries(e, frac, cfg, seed):
@@ -138,7 +241,7 @@ def test_viewer_on_card_matches_cpu(dev):
         [math.sin(yaw), 0.3, math.cos(yaw)], np.float32))
     kernels.reset_launch_counts()
     got = Viewer(g, 256, 256, max_dup=16, device=dev).render(cam)
-    assert kernels.LAUNCHES == {"fused": 1, "sort": 1, "composite": 1}
+    assert kernels.LAUNCHES == {"fused": 1, "sort": 1, "composite": 1, "geometry": 0}
     ref = Viewer(g, 256, 256, max_dup=16, device="cpu").render(cam)
     # CPU and card transcendentals may move a depth key by one step, which
     # can reorder near-ties: hold the two to the golden gate.
@@ -147,3 +250,27 @@ def test_viewer_on_card_matches_cpu(dev):
 
 def _u8(img):
     return np.clip(img.numpy() * 255.0, 0, 255).astype(np.uint8).astype(np.int16)
+
+
+def test_gated_viewer_on_card_matches_cpu(dev):
+    """Selection edit + highlight, committed edits and a mask: the frame
+    through the kernels on the card vs the plain path on the CPU."""
+    g = make_random_scene(20000, seed=3, extent=2.0, scale_range=(0.004, 0.03))
+    cam = CameraOrbitControl(target=(0, 0, 0), pos=(0.3, 0.2, -5.0))
+    rng = np.random.default_rng(4)
+    first, second, mask = (rng.random(g.count) < p for p in (0.4, 0.3, 0.8))
+    imgs = []
+    for device in (dev, "cpu"):
+        v = Viewer(g, 256, 256, max_dup=8, device=device)
+        b = v.models["model"].buffers
+        b.set_selection(first.astype(np.uint8))
+        b.commit_selection_edit(tedit.EDIT_FLAG_ENABLED, (0.3, 0.8, 1.1), (0.1, 0.3, 1.2, 0.7))
+        b.set_selection(second.astype(np.uint8))
+        b.set_mask(mask.astype(np.uint8))
+        v.update_selection_edit(SEL_EDIT)
+        v.update_selection_highlight(tedit.SelectionHighlightPod((1.0, 0.0, 1.0, 0.4)), True)
+        kernels.reset_launch_counts()
+        imgs.append(v.render(cam).cpu())
+        if device == dev:
+            assert kernels.LAUNCHES == {"fused": 1, "sort": 1, "composite": 1, "geometry": 0}
+    assert_golden_close(_u8(imgs[0]), _u8(imgs[1]))

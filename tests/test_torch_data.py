@@ -1,5 +1,7 @@
 """Port data layer against the JAX package: pod words, synthetic scenes,
-PLY round trips and the in-place device buffers (CPU, plain torch)."""
+PLY round trips and exports with baked edits, the JAX buffers' editing
+state carried across, and the in-place device buffers (CPU, plain
+torch)."""
 
 import io
 import os
@@ -8,11 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from wgpu_3dgs_viewer_app_tpu.core import edit as jedit
 from wgpu_3dgs_viewer_app_tpu.data import compression as jcomp
 from wgpu_3dgs_viewer_app_tpu.data import make_random_scene as j_make_random_scene
 from wgpu_3dgs_viewer_app_tpu.data import read_ply as j_read_ply
 from wgpu_3dgs_viewer_app_tpu.data import write_ply as j_write_ply
-from wgpu_3dgs_viewer_app_tpu_torch.convert import pod_from_jax
+from wgpu_3dgs_viewer_app_tpu.viewer import GaussianBuffers as JBuffers
+from wgpu_3dgs_viewer_app_tpu_torch.convert import bits_from_jax, edits_from_jax, pod_from_jax
 from wgpu_3dgs_viewer_app_tpu_torch.data import compression as tcomp
 from wgpu_3dgs_viewer_app_tpu_torch.data import make_random_scene, read_ply, write_ply
 from wgpu_3dgs_viewer_app_tpu_torch.viewer import GaussianBuffers
@@ -97,3 +101,60 @@ def test_buffers_update_range_in_place():
     assert int(parts.pod["color0"][700:].abs().sum()) == 0  # empty slots: alpha 0
     with pytest.raises(ValueError):
         parts.update_range(900, g.slice(0, 200))
+
+
+def _edits(n, seed=6):
+    """A per-splat edit SoA with every flag combination (numpy seed)."""
+    rng = np.random.default_rng(seed)
+    flags, rgb, params = jedit.make_edit_soa(n)
+    flags[:] = rng.integers(0, 8, n)
+    rgb[:] = rng.uniform([-1.0, 0.0, 0.0], [1.0, 1.5, 1.5], (n, 3))
+    params[:] = rng.uniform([-0.4, -0.8, 0.4, 0.2], [0.4, 0.8, 2.5, 1.0], (n, 4))
+    return flags, rgb, params
+
+
+@pytest.mark.parametrize("with_mask", [False, True], ids=["edits", "edits+mask"])
+def test_write_ply_with_edits_bytes_equal(with_mask):
+    """Baked exports: the port writes the JAX package's bytes (hidden splats
+    dropped, unedited splats unchanged)."""
+    g = read_ply(FIXTURE)
+    g = g.select(np.arange(g.count) < 3000)
+    edits = _edits(g.count)
+    mask = np.random.default_rng(1).random(g.count) > 0.2 if with_mask else None
+    fa, fb = io.BytesIO(), io.BytesIO()
+    na = j_write_ply(fa, g, edits=edits, mask=mask)
+    nb = write_ply(fb, g, edits=edits, mask=mask)
+    assert na == nb < g.count
+    assert fa.getvalue() == fb.getvalue()
+
+
+def test_edits_and_bits_from_jax():
+    """The JAX buffers' padded edit SoA, selection and mask -> the port's
+    tensors at the port's capacity, then into the port's buffers."""
+    n = 300
+    jb = JBuffers(n, jcomp.ALL_COMPRESSIONS[5])
+    assert jb.capacity == 384  # padded to 128
+    flags, rgb, params = _edits(jb.capacity)
+    jb.set_edits(flags, rgb, params)
+    jb.set_selection(np.arange(n) % 3 == 0)
+    jb.set_mask(np.arange(n) % 5 != 0)
+    ef, er, ep = edits_from_jax(np.asarray(jb.edit_flags), np.asarray(jb.edit_rgb),
+                                np.asarray(jb.edit_params), n)
+    assert ef.dtype == torch.int32 and ef.shape == (n,)
+    assert er.shape == (n, 3) and ep.shape == (n, 4)
+    assert np.array_equal(ef.numpy().view(np.uint32), flags[:n])
+    assert np.array_equal(er.numpy(), rgb[:n]) and np.array_equal(ep.numpy(), params[:n])
+    sel = bits_from_jax(np.asarray(jb.selection), n)
+    mask = bits_from_jax(np.asarray(jb.mask), n)
+    assert sel.dtype == mask.dtype == torch.uint8 and sel.shape == mask.shape == (n,)
+    tb = GaussianBuffers(n, tcomp.ALL_COMPRESSIONS[5], "cpu")
+    tb.loaded = jb.loaded = n
+    tb.set_edits(ef, er, ep)
+    tb.set_selection(sel)
+    tb.set_mask(mask)
+    for a, b in zip(jb.download_edits(), tb.download_edits()):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert np.array_equal(jb.download_selection(), tb.download_selection())
+    assert np.array_equal(jb.download_mask(), tb.download_mask())
+    with pytest.raises(ValueError, match="capacity"):
+        bits_from_jax(np.asarray(jb.mask), jb.capacity + 1)

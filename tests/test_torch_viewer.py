@@ -1,6 +1,8 @@
 """The port's whole slice on the CPU: `Viewer.render` against the JAX
-viewer, the CLI against the committed golden image, model management, and
-that the port never imports JAX."""
+viewer (ungated, and gated with a selection edit, highlight, committed
+per-splat edits and a mask), the CLI against the committed golden image,
+model management, the editing state's downloads, and that the port never
+imports JAX."""
 
 import math
 import os
@@ -13,9 +15,11 @@ import torch
 
 from test_golden import assert_golden_close
 from wgpu_3dgs_viewer_app_tpu.core import CameraOrbitControl as JCamera
+from wgpu_3dgs_viewer_app_tpu.core import edit as jedit
 from wgpu_3dgs_viewer_app_tpu.viewer import Viewer as JViewer
 from wgpu_3dgs_viewer_app_tpu_torch.app.cli import main as cli_main
 from wgpu_3dgs_viewer_app_tpu_torch.core import CameraOrbitControl
+from wgpu_3dgs_viewer_app_tpu_torch.core import edit as tedit
 from wgpu_3dgs_viewer_app_tpu_torch.data import make_random_scene, read_ply, write_ply
 from wgpu_3dgs_viewer_app_tpu_torch.utils.png import read_png, write_png
 from wgpu_3dgs_viewer_app_tpu_torch.viewer import MultiModelViewer, Viewer
@@ -41,14 +45,94 @@ def _u8(img):
 
 
 def test_viewer_render_matches_jax_viewer():
-    """20k splats at 256x256: the port's Viewer.render (plain path) against
-    the JAX Viewer.render on the CPU, held to the golden gate."""
+    """The golden fixture's first 10k splats at 128x128 (golden camera):
+    the port's Viewer.render (plain path) against the JAX Viewer.render on
+    the CPU, held to the golden gate."""
     g, center, pos = _golden_scene()
-    ref = JViewer(g, 256, 256, max_dup=16).render(JCamera(target=center, pos=pos))
-    got = Viewer(g, 256, 256, max_dup=16, device="cpu").render(
+    g = g.select(np.arange(g.count) < 10_000)
+    ref = JViewer(g, 128, 128, max_dup=16).render(JCamera(target=center, pos=pos))
+    got = Viewer(g, 128, 128, max_dup=16, device="cpu").render(
         CameraOrbitControl(target=center, pos=pos))
-    assert got.shape == (256, 256, 3) and got.dtype == torch.float32
+    assert got.shape == (128, 128, 3) and got.dtype == torch.float32
+    assert float(got.amax(dim=-1).gt(0.02).float().mean()) > 0.1
     assert_golden_close(_u8(got.numpy()), _u8(ref))
+
+
+def _edit_state(v, edit_mod, n, with_mask=True):
+    """The same editing state on a JAX or a port viewer, from numpy seeds:
+    a committed edit on one selection, then a live selection edit and
+    highlight on another, and (optionally) a mask."""
+    rng = np.random.default_rng(12)
+    first, second = rng.random(n) < 0.4, rng.random(n) < 0.3
+    mask = rng.random(n) < 0.8
+    b = v.models["model"].buffers
+    b.set_selection(first.astype(np.uint8))
+    b.commit_selection_edit(edit_mod.EDIT_FLAG_ENABLED | edit_mod.EDIT_FLAG_OVERRIDE_COLOR,
+                            (0.2, 0.9, 0.3), (0.1, 0.3, 1.2, 0.7))
+    b.set_selection(second.astype(np.uint8))
+    v.update_selection_edit(edit_mod.GaussianEditPod(edit_mod.EDIT_FLAG_ENABLED, (0.15, 1.2, 1.0),
+                                                     0.1, 0.2, 1.0, 0.9))
+    v.update_selection_highlight(edit_mod.SelectionHighlightPod((1.0, 0.0, 1.0, 0.4)), True)
+    if with_mask:
+        b.set_mask(mask.astype(np.uint8))
+    return b
+
+
+def _edit_scene():
+    g = make_random_scene(1000, seed=13, extent=1.5, scale_range=(0.008, 0.03))
+    return g, dict(target=(0, 0, 0), pos=(0.4, 0.3, -4.5))
+
+
+def test_viewer_gated_frame_matches_jax_viewer():
+    """Selection edit + highlight, committed edits and a mask at 128x128,
+    tile 16: the port's plain path against the JAX viewer's XLA path
+    (`use_pallas=False`) with the same state, held to the golden gate; the
+    edited frame differs from the unedited one."""
+    g, cam = _edit_scene()
+    jv = JViewer(g, 128, 128, tile=16, max_dup=8, use_pallas=False)
+    _edit_state(jv, jedit, g.count)
+    ref = np.asarray(jv.render(JCamera(**cam)))
+    tv = Viewer(g, 128, 128, tile=16, max_dup=8, device="cpu")
+    _edit_state(tv, tedit, g.count)
+    got = tv.render(CameraOrbitControl(**cam))
+    assert_golden_close(_u8(got.numpy()), _u8(ref))
+    plain = Viewer(g, 128, 128, tile=16, max_dup=8, device="cpu").render(CameraOrbitControl(**cam))
+    assert float((got - plain).abs().max()) > 0.1
+
+
+def test_show_unedited_equals_ungated_frame():
+    """`show_unedited` drops the committed and the live selection edit; with
+    no mask and the highlight off it is the ungated frame, bit for bit."""
+    g, cam = _edit_scene()
+    v = Viewer(g, 64, 64, tile=16, max_dup=8, device="cpu")
+    _edit_state(v, tedit, g.count, with_mask=False)
+    v.update_selection_highlight(v.highlight, show=False)
+    edited = v.render(CameraOrbitControl(**cam))
+    unedited = v.render(show_unedited=True)
+    plain = Viewer(g, 64, 64, tile=16, max_dup=8, device="cpu").render(CameraOrbitControl(**cam))
+    assert torch.equal(unedited, plain)
+    assert not torch.equal(edited, plain)
+
+
+def test_commit_and_downloads_match_jax_buffers():
+    """The editing state's downloads (edits, selection, mask) equal the JAX
+    buffers' after the same operations."""
+    g, _ = _edit_scene()
+    jv = JViewer(g, 64, 64, use_pallas=False)
+    tv = Viewer(g, 64, 64, device="cpu")
+    jb, tb = _edit_state(jv, jedit, g.count), _edit_state(tv, tedit, g.count)
+    for a, b in zip(jb.download_edits(), tb.download_edits()):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert np.array_equal(jb.download_selection(), tb.download_selection())
+    assert np.array_equal(jb.download_mask(), tb.download_mask())
+    assert tb.edit_flags.dtype == torch.int32 and tb.mask is not None
+    # A model never edited holds no gate tensors; its downloads are the defaults.
+    fresh = Viewer(g, 64, 64, device="cpu").models["model"].buffers
+    assert fresh.edit_flags is None and fresh.selection is None and fresh.mask is None
+    for a, b in zip(jv.models["model"].buffers.download_edits(), fresh.download_edits()):
+        assert a.dtype == b.dtype
+    assert np.array_equal(fresh.download_mask(), np.ones(g.count, np.uint8))
+    assert np.array_equal(fresh.download_selection(), np.zeros(g.count, np.uint8))
 
 
 def test_cli_render_golden_cpu(tmp_path):

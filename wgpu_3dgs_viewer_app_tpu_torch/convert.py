@@ -5,7 +5,10 @@ out, so this module needs no JAX).
   -> the port's flat word tensors;
 - `sorted_entries_from_jax` / `sorted_entries_to_jax`: the JAX
   `SortedEntries` fields (planes (R, 4, 128) u32, tile starts/counts,
-  n_valid) <-> the port's `SortedEntries` ((E, 4) int32 entries).
+  n_valid) <-> the port's `SortedEntries` ((E, 4) int32 entries);
+- `edits_from_jax` / `bits_from_jax`: the JAX buffers' per-splat state (the
+  edit SoA, the selection and mask bits, all padded to a multiple of 128)
+  -> the port's buffer tensors at the port's capacity.
 """
 
 from __future__ import annotations
@@ -61,3 +64,24 @@ def sorted_entries_to_jax(se: SortedEntries) -> tuple:
     planes = np.ascontiguousarray(ent.reshape(-1, ROW, 4).transpose(0, 2, 1))
     return (planes, se.tile_starts.cpu().numpy().astype(np.int32),
             se.tile_counts.cpu().numpy().astype(np.int32), np.int32(se.n_valid))
+
+
+def _cut(a: np.ndarray, capacity: int, name: str) -> np.ndarray:
+    """The first `capacity` rows of a padded JAX sidecar array."""
+    if a.shape[0] < capacity:
+        raise ValueError(f"{name}: {a.shape[0]} rows, fewer than capacity {capacity}")
+    return np.array(a[:capacity])  # a writable copy: device arrays read back read-only
+
+
+def edits_from_jax(flags, rgb, params, capacity: int, device="cpu") -> tuple:
+    """JAX edit SoA (u32 flags (N_pad,), f32 rgb (N_pad, 3), f32 params
+    (N_pad, 4)) -> the port's (int32 flags, rgb, params) at `capacity`."""
+    flags = _cut(np.asarray(flags, np.uint32), capacity, "edit flags").view(np.int32)
+    rgb = _cut(np.asarray(rgb, np.float32), capacity, "edit rgb")
+    params = _cut(np.asarray(params, np.float32), capacity, "edit params")
+    return tuple(torch.from_numpy(a).to(device) for a in (flags, rgb, params))
+
+
+def bits_from_jax(bits, capacity: int, device="cpu") -> torch.Tensor:
+    """JAX selection or mask bits (N_pad,) -> the port's (capacity,) uint8."""
+    return torch.from_numpy(_cut(np.asarray(bits).astype(np.uint8), capacity, "bits")).to(device)

@@ -1,59 +1,39 @@
 // K1 - fused splat front-end: flat word pod -> (N * D) packed entries.
 //
 // Replaces the Pallas kernel `wgpu_3dgs_viewer_app_tpu/ops/fused.py::_kernel`
-// (ungated specialisation, presort off). One thread per splat: decode the pod
-// words, model and view transform, EWA conic and radius, SH (degree 0-3) to
-// RGB, opacity-aware extent, cull, then enumerate up to D tiles centre-out
-// with the exact ellipse-tile test and pack key/p1/p2/p3. Slot d of splat s
-// is written at entry s * D + d as one 16-byte store; dead slots are
-// (SENTINEL, 0, 0, 0).
+// (presort off), gates included. One thread per splat: decode the pod
+// words, model and view transform, EWA conic and radius (splat.cuh, shared
+// with K4), SH (degree 0-3) to RGB, the gates (mask bits, per-splat edit,
+// scene-wide selection edit, highlight; splat.cuh), opacity-aware extent,
+// cull, then enumerate up to D tiles centre-out with the exact ellipse-tile
+// test and pack key/p1/p2/p3. Slot d of splat s is written at entry
+// s * D + d as one 16-byte store; dead slots are (SENTINEL, 0, 0, 0).
 //
 // The arithmetic repeats, expression for expression, the plain version
 // (ops/preprocess.py + ops/binning.py); the library is built with
 // --fmad=false so no multiply-add contracts, and the transcendentals are the
-// ones torch's CUDA ops call (logf, sqrtf, rsqrtf), so kernel and plain
-// version agree to the bit on almost every entry.
+// ones torch's CUDA ops call (logf, sqrtf, rsqrtf, exp2f, log2f), so kernel
+// and plain version agree to the bit on almost every entry.
 //
 // What bounds it on an H100: memory. Per splat it reads 12 B of position,
 // 4 B of colour, 12-24 B of covariance and up to 188 B of SH, and writes
-// 16 * D bytes of entries; the arithmetic (~400 flops at SH degree 3) stays
-// far below the card's compute rate. The design keeps every intermediate in
-// registers (no per-splat temporaries in device memory, unlike the plain
-// version's ~60 full-size tensors) and reads each pod plane once, coalesced
-// across the warp (the pod is splat-axis-last). Warp-level staging of the
-// strided 16-byte entry stores is left for a later pass.
+// 16 * D bytes of entries; the gates add 1 B of mask, 1 B of selection and
+// 32 B of edit record. The arithmetic (~400 flops at SH degree 3, ~100 more
+// per active edit) stays far below the card's compute rate. The design keeps
+// every intermediate in registers (no per-splat temporaries in device
+// memory, unlike the plain version's ~60 full-size tensors) and reads each
+// pod plane once, coalesced across the warp (the pod is splat-axis-last).
+// The gate tensors are read where they lie, u8 bits and row-major (N, 3) /
+// (N, 4) edit records, so a gated frame repacks nothing; the ungated frame
+// runs a separate instantiation with no gate code at all. Warp-level
+// staging of the strided 16-byte entry stores is left for a later pass.
 #include <cstring>
 
-#include "common.cuh"
+#include "splat.cuh"
+
+using namespace gs;
 
 namespace {
-
-// Frame scalars; the order is ops/fused.py::_frame_param_array.
-struct FrameParams {
-  float m3[9], mt[3], v3[9], vt[3];
-  float p00, p11, fx, fy, tanx, tany, limx, limy, width, height;
-  float size2, r_pt, inv_pt;
-  float cam[3];
-  float z_near, z_far, depth_scale, depth_qmax;
-};
-constexpr int kFrameFloats = 44;
-static_assert(sizeof(FrameParams) == kFrameFloats * sizeof(float), "frame params");
-
-struct IntParams {
-  int n, sh_comp, cov_comp, sh_degree, no_sh0, display_mode;
-  int tile, tiles_x, tiles_y, max_dup, tile_shift;
-};
-constexpr int kIntParams = 11;
-static_assert(sizeof(IntParams) == kIntParams * sizeof(int), "int params");
-
-enum { SH_SINGLE = 0, SH_HALF = 1, SH_NORM8 = 2, SH_REMOVE = 3 };
-enum { COV_SINGLE = 0, COV_HALF = 1 };
-
-constexpr float kAlphaEps = 1.0f / 255.0f;
-
-__device__ __forceinline__ float clampf(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
-}
 
 template <int SH>
 __device__ __forceinline__ float sh_coeff(const void* sh, const float mn, const float scale,
@@ -71,101 +51,22 @@ __device__ __forceinline__ float sh_coeff(const void* sh, const float mn, const 
   return 0.0f;
 }
 
-template <int SH, int COV>
+template <int SH, int COV, bool GATED>
 __global__ void __launch_bounds__(128)
 fused_frontend_kernel(const FrameParams fp, const IntParams ip,
                       const float* __restrict__ pos, const uint32_t* __restrict__ color0,
                       const void* __restrict__ cov3d, const void* __restrict__ sh,
                       const float* __restrict__ sh_mn, const float* __restrict__ sh_span,
-                      uint4* __restrict__ out) {
+                      const Gates gates, uint4* __restrict__ out) {
   const int64_t n = ip.n;
   const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= n) return;
 
-  // --- decode ---
-  const uint32_t c0 = color0[s];
-  const float c0r = gs_u8_unit(c0, 0), c0g = gs_u8_unit(c0, 8), c0b = gs_u8_unit(c0, 16);
-  float alpha = gs_u8_unit(c0, 24);
-  float cv[6];
-  if (COV == COV_SINGLE) {
-    const float* c = static_cast<const float*>(cov3d);
-#pragma unroll
-    for (int i = 0; i < 6; ++i) cv[i] = c[i * n + s];
-  } else {
-    const uint32_t* c = static_cast<const uint32_t*>(cov3d);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const uint32_t w = c[j * n + s];
-      cv[2 * j] = gs_f16_bits_to_f32(w & 0xFFFFu);
-      cv[2 * j + 1] = gs_f16_bits_to_f32(w >> 16);
-    }
-  }
-  const float x0 = pos[s], y0 = pos[n + s], z0 = pos[2 * n + s];
-
-  // --- model transform; covariance M Sigma M^T scaled by size^2 ---
-  const float* m = fp.m3;
-  const float wx = m[0] * x0 + m[1] * y0 + m[2] * z0 + fp.mt[0];
-  const float wy = m[3] * x0 + m[4] * y0 + m[5] * z0 + fp.mt[1];
-  const float wz = m[6] * x0 + m[7] * y0 + m[8] * z0 + fp.mt[2];
-  const float sg[3][3] = {{cv[0], cv[1], cv[2]}, {cv[1], cv[3], cv[4]}, {cv[2], cv[4], cv[5]}};
-  float t[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      t[i][k] = m[i * 3 + 0] * sg[0][k] + m[i * 3 + 1] * sg[1][k] + m[i * 3 + 2] * sg[2][k];
-  auto cov_out = [&](int i, int j) {
-    return (t[i][0] * m[j * 3 + 0] + t[i][1] * m[j * 3 + 1] + t[i][2] * m[j * 3 + 2]) * fp.size2;
-  };
-  const float xx = cov_out(0, 0), xy = cov_out(0, 1), xz = cov_out(0, 2);
-  const float yy = cov_out(1, 1), yz = cov_out(1, 2), zz = cov_out(2, 2);
-
-  // --- view transform, depth, projection to pixels ---
-  const float* v = fp.v3;
-  const float tvx = v[0] * wx + v[1] * wy + v[2] * wz + fp.vt[0];
-  const float tvy = v[3] * wx + v[4] * wy + v[5] * wz + fp.vt[1];
-  const float tvz = v[6] * wx + v[7] * wy + v[8] * wz + fp.vt[2];
-  const float depth = -tvz;
-  const float d = fmaxf(depth, 1e-6f);
-  const float px = (fp.p00 * tvx / d * 0.5f + 0.5f) * fp.width;
-  const float py = (0.5f - fp.p11 * tvy / d * 0.5f) * fp.height;
-
-  // --- EWA: cov2d = (J W) Sigma (J W)^T + dilation ---
-  const float txc = clampf(tvx / d, -fp.limx, fp.limx) * d;
-  const float tyc = clampf(tvy / d, -fp.limy, fp.limy) * d;
-  const float inv_d = 1.0f / d;
-  const float inv_d2 = inv_d * inv_d;
-  const float j00 = fp.fx * inv_d, j02 = fp.fx * txc * inv_d2;
-  const float j11 = (-fp.fy) * inv_d, j12 = (-fp.fy) * tyc * inv_d2;
-  float p[3], q[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    p[k] = j00 * v[k] + j02 * v[6 + k];
-    q[k] = j11 * v[3 + k] + j12 * v[6 + k];
-  }
-  const float sp0 = xx * p[0] + xy * p[1] + xz * p[2];
-  const float sp1 = xy * p[0] + yy * p[1] + yz * p[2];
-  const float sp2 = xz * p[0] + yz * p[1] + zz * p[2];
-  const float sq0 = xx * q[0] + xy * q[1] + xz * q[2];
-  const float sq1 = xy * q[0] + yy * q[1] + yz * q[2];
-  const float sq2 = xz * q[0] + yz * q[1] + zz * q[2];
-  const float ka = p[0] * sp0 + p[1] * sp1 + p[2] * sp2 + 0.3f;
-  const float kb = q[0] * sp0 + q[1] * sp1 + q[2] * sp2;
-  const float kc = q[0] * sq0 + q[1] * sq1 + q[2] * sq2 + 0.3f;
-
-  const float det = ka * kc - kb * kb;
-  const bool det_ok = det > 0.0f;
-  const float inv_det = det_ok ? 1.0f / fmaxf(det, 1e-12f) : 0.0f;
-  float ca = kc * inv_det, cb = (-kb) * inv_det, cc = ka * inv_det;
-  const float mid = 0.5f * (ka + kc);
-  const float disc = sqrtf(fmaxf(mid * mid - det, 0.1f));
-  float radius = ceilf(3.0f * sqrtf(fmaxf(mid + disc, 0.0f)));
-  if (ip.display_mode == 2) {  // point: flat disc of fixed pixel radius
-    radius = fp.r_pt;
-    ca = fp.inv_pt;
-    cb = 0.0f;
-    cc = fp.inv_pt;
-  }
+  const SplatGeometry sg = splat_geometry<COV>(fp, ip.display_mode, pos, color0, cov3d, n, s);
+  const float wx = sg.wx, wy = sg.wy, wz = sg.wz, px = sg.px, py = sg.py;
+  const float ca = sg.ca, cb = sg.cb, cc = sg.cc;
+  const float c0r = sg.r, c0g = sg.g, c0b = sg.b;
+  float alpha = sg.alpha;
 
   // --- SH -> RGB (degree-0 term is the u8 color0) ---
   const float base_r = ip.no_sh0 ? 0.5f : c0r;
@@ -213,21 +114,15 @@ fused_frontend_kernel(const FrameParams fp, const IntParams ip,
 #pragma unroll
   for (int c = 0; c < 3; ++c) col[c] = clampf(col[c], 0.0f, 1.0f);
 
-  // --- opacity-aware extent and cull ---
-  if (ip.display_mode == 0) {
-    const float cut = sqrtf(2.0f * fmaxf(logf(alpha * 255.0f), 0.0f));
-    radius = radius * (cut * (1.0f / 3.0f));
-  } else if (ip.display_mode == 1) {
-    radius = radius * (2.0f / 3.0f);
-  }
-  const bool on_screen = (px + radius > 0.0f) && (px - radius < fp.width) &&
-                         (py + radius > 0.0f) && (py - radius < fp.height);
-  const bool valid = det_ok && depth > fp.z_near && depth < fp.z_far && on_screen &&
-                     alpha > kAlphaEps && radius > 0.0f;
+  // --- gates and edits, then the opacity-aware extent and cull ---
+  bool gate_ok = true;
+  if (GATED) gate_ok = apply_gates(fp, ip, gates, s, col[0], col[1], col[2], alpha);
+  const float radius = live_radius(ip.display_mode, sg.radius, alpha);
+  const bool valid = splat_valid(fp, sg, radius, alpha, gate_ok);
   if (!valid) alpha = 0.0f;
 
   // --- per-splat entry words ---
-  const float ld = logf(fmaxf(depth, 1e-6f));
+  const float ld = logf(fmaxf(sg.depth, 1e-6f));
   const uint32_t dkey = (uint32_t)(int)clampf((ld - (-3.0f)) * fp.depth_scale, 0.0f, fp.depth_qmax);
   const uint32_t a8 = (uint32_t)(int)clampf(alpha * 255.0f + 0.5f, 0.0f, 252.0f);
   const uint32_t key_lo = (dkey << 8) | a8;
@@ -292,30 +187,41 @@ fused_frontend_kernel(const FrameParams fp, const IntParams ip,
 
 template <int SH, int COV>
 void launch(const FrameParams& fp, const IntParams& ip, const void* pos, const void* color0,
-            const void* cov3d, const void* sh, const void* sh_mn, const void* sh_span, void* out,
-            cudaStream_t stream) {
+            const void* cov3d, const void* sh, const void* sh_mn, const void* sh_span,
+            const Gates& gates, void* out, cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (ip.n + threads - 1) / threads;
-  fused_frontend_kernel<SH, COV><<<blocks, threads, 0, stream>>>(
-      fp, ip, static_cast<const float*>(pos), static_cast<const uint32_t*>(color0), cov3d, sh,
-      static_cast<const float*>(sh_mn), static_cast<const float*>(sh_span),
-      static_cast<uint4*>(out));
+  const float* p = static_cast<const float*>(pos);
+  const uint32_t* c0 = static_cast<const uint32_t*>(color0);
+  const float* mn = static_cast<const float*>(sh_mn);
+  const float* span = static_cast<const float*>(sh_span);
+  uint4* o = static_cast<uint4*>(out);
+  if (ip.gates)
+    fused_frontend_kernel<SH, COV, true><<<blocks, threads, 0, stream>>>(
+        fp, ip, p, c0, cov3d, sh, mn, span, gates, o);
+  else
+    fused_frontend_kernel<SH, COV, false><<<blocks, threads, 0, stream>>>(
+        fp, ip, p, c0, cov3d, sh, mn, span, gates, o);
 }
 
 }  // namespace
 
 extern "C" int gs_fused_frontend(const float* frame, const int* iparams, const void* pos,
                                  const void* color0, const void* cov3d, const void* sh,
-                                 const void* sh_mn, const void* sh_span, void* out,
-                                 void* stream) {
+                                 const void* sh_mn, const void* sh_span, const void* mask,
+                                 const void* sel, const void* eflags, const void* ergb,
+                                 const void* eparams, void* out, void* stream) {
   FrameParams fp;
   IntParams ip;
   memcpy(&fp, frame, sizeof(fp));
   memcpy(&ip, iparams, sizeof(ip));
   if (ip.n <= 0) return 0;
+  const Gates gates{static_cast<const uint8_t*>(mask), static_cast<const uint8_t*>(sel),
+                    static_cast<const uint32_t*>(eflags), static_cast<const float*>(ergb),
+                    static_cast<const float*>(eparams)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define GS_CASE(S, C) \
-  case S * 2 + C: launch<S, C>(fp, ip, pos, color0, cov3d, sh, sh_mn, sh_span, out, st); break;
+  case S * 2 + C: launch<S, C>(fp, ip, pos, color0, cov3d, sh, sh_mn, sh_span, gates, out, st); break;
   switch (ip.sh_comp * 2 + ip.cov_comp) {
     GS_CASE(SH_SINGLE, COV_SINGLE)
     GS_CASE(SH_SINGLE, COV_HALF)

@@ -1,0 +1,279 @@
+// The per-splat section that kernels K1 (fused.cu) and K4 (geometry.cu)
+// share, so the two cannot drift apart: the frame scalars, pod decode ->
+// model/view transform -> projection -> EWA conic and radius, the colour
+// edit, the gates (mask, per-splat edit, selection edit, highlight) and the
+// opacity-aware extent.
+//
+// Every expression repeats, in order, the plain version in
+// ops/preprocess.py (and core/edit.py::apply_edit_components for the edit);
+// the library is built with --fmad=false and calls the transcendentals that
+// torch's CUDA ops call (logf, sqrtf, exp2f, log2f), so a kernel and its
+// plain version agree to the bit on the card.
+#pragma once
+
+#include "common.cuh"
+
+namespace gs {
+
+// Frame scalars; the order is ops/fused.py::_frame_param_array.
+struct FrameParams {
+  float m3[9], mt[3], v3[9], vt[3];
+  float p00, p11, fx, fy, tanx, tany, limx, limy, width, height;
+  float size2, r_pt, inv_pt;
+  float cam[3];
+  float z_near, z_far, depth_scale, depth_qmax;
+  float sel_rgb[3], sel_params[4];  // scene-wide selection edit
+  float highlight[4];               // highlight rgba
+};
+constexpr int kFrameFloats = 55;
+static_assert(sizeof(FrameParams) == kFrameFloats * sizeof(float), "frame params");
+
+// Integer scalars; the order is ops/fused.py::_int_param_array.
+struct IntParams {
+  int n, sh_comp, cov_comp, sh_degree, no_sh0, display_mode;
+  int tile, tiles_x, tiles_y, max_dup, tile_shift;
+  int gates, sel_flags;
+};
+constexpr int kIntParams = 13;
+static_assert(sizeof(IntParams) == kIntParams * sizeof(int), "int params");
+
+enum { SH_SINGLE = 0, SH_HALF = 1, SH_NORM8 = 2, SH_REMOVE = 3 };
+enum { COV_SINGLE = 0, COV_HALF = 1 };
+enum { GATE_MASK = 1, GATE_EDIT = 2, GATE_SEL_EDIT = 4, GATE_HIGHLIGHT = 8 };
+enum { EDIT_ENABLED = 1, EDIT_HIDDEN = 2, EDIT_OVERRIDE_COLOR = 4 };
+
+constexpr float kAlphaEps = 1.0f / 255.0f;
+
+// Gate tensors, read where they lie (no per-frame repack); null when absent.
+struct Gates {
+  const uint8_t* mask;      // (N,) keep bits
+  const uint8_t* sel;       // (N,) selection bits
+  const uint32_t* eflags;   // (N,) per-splat edit flags
+  const float* ergb;        // (N, 3) row-major
+  const float* eparams;     // (N, 4) row-major: contrast, exposure, gamma, alpha
+};
+
+__device__ __forceinline__ float clampf(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+
+struct SplatGeometry {
+  float wx, wy, wz;          // world position
+  float depth, px, py;       // view depth, pixel centre
+  float ca, cb, cc, radius;  // conic and flat 3-sigma (or point) radius
+  bool det_ok;
+  float r, g, b, alpha;      // u8 colour0 and opacity
+};
+
+// Decode -> model/view transform -> projection -> EWA conic and radius.
+template <int COV>
+__device__ __forceinline__ SplatGeometry splat_geometry(
+    const FrameParams& fp, int display_mode, const float* __restrict__ pos,
+    const uint32_t* __restrict__ color0, const void* __restrict__ cov3d, int64_t n, int64_t s) {
+  SplatGeometry o;
+  // --- decode ---
+  const uint32_t c0 = color0[s];
+  o.r = gs_u8_unit(c0, 0);
+  o.g = gs_u8_unit(c0, 8);
+  o.b = gs_u8_unit(c0, 16);
+  o.alpha = gs_u8_unit(c0, 24);
+  float cv[6];
+  if (COV == COV_SINGLE) {
+    const float* c = static_cast<const float*>(cov3d);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) cv[i] = c[i * n + s];
+  } else {
+    const uint32_t* c = static_cast<const uint32_t*>(cov3d);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const uint32_t w = c[j * n + s];
+      cv[2 * j] = gs_f16_bits_to_f32(w & 0xFFFFu);
+      cv[2 * j + 1] = gs_f16_bits_to_f32(w >> 16);
+    }
+  }
+  const float x0 = pos[s], y0 = pos[n + s], z0 = pos[2 * n + s];
+
+  // --- model transform; covariance M Sigma M^T scaled by size^2 ---
+  const float* m = fp.m3;
+  o.wx = m[0] * x0 + m[1] * y0 + m[2] * z0 + fp.mt[0];
+  o.wy = m[3] * x0 + m[4] * y0 + m[5] * z0 + fp.mt[1];
+  o.wz = m[6] * x0 + m[7] * y0 + m[8] * z0 + fp.mt[2];
+  const float sg[3][3] = {{cv[0], cv[1], cv[2]}, {cv[1], cv[3], cv[4]}, {cv[2], cv[4], cv[5]}};
+  float t[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      t[i][k] = m[i * 3 + 0] * sg[0][k] + m[i * 3 + 1] * sg[1][k] + m[i * 3 + 2] * sg[2][k];
+  auto cov_out = [&](int i, int j) {
+    return (t[i][0] * m[j * 3 + 0] + t[i][1] * m[j * 3 + 1] + t[i][2] * m[j * 3 + 2]) * fp.size2;
+  };
+  const float xx = cov_out(0, 0), xy = cov_out(0, 1), xz = cov_out(0, 2);
+  const float yy = cov_out(1, 1), yz = cov_out(1, 2), zz = cov_out(2, 2);
+
+  // --- view transform, depth, projection to pixels ---
+  const float* v = fp.v3;
+  const float tvx = v[0] * o.wx + v[1] * o.wy + v[2] * o.wz + fp.vt[0];
+  const float tvy = v[3] * o.wx + v[4] * o.wy + v[5] * o.wz + fp.vt[1];
+  const float tvz = v[6] * o.wx + v[7] * o.wy + v[8] * o.wz + fp.vt[2];
+  o.depth = -tvz;
+  const float d = fmaxf(o.depth, 1e-6f);
+  o.px = (fp.p00 * tvx / d * 0.5f + 0.5f) * fp.width;
+  o.py = (0.5f - fp.p11 * tvy / d * 0.5f) * fp.height;
+
+  // --- EWA: cov2d = (J W) Sigma (J W)^T + dilation ---
+  const float txc = clampf(tvx / d, -fp.limx, fp.limx) * d;
+  const float tyc = clampf(tvy / d, -fp.limy, fp.limy) * d;
+  const float inv_d = 1.0f / d;
+  const float inv_d2 = inv_d * inv_d;
+  const float j00 = fp.fx * inv_d, j02 = fp.fx * txc * inv_d2;
+  const float j11 = (-fp.fy) * inv_d, j12 = (-fp.fy) * tyc * inv_d2;
+  float p[3], q[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    p[k] = j00 * v[k] + j02 * v[6 + k];
+    q[k] = j11 * v[3 + k] + j12 * v[6 + k];
+  }
+  const float sp0 = xx * p[0] + xy * p[1] + xz * p[2];
+  const float sp1 = xy * p[0] + yy * p[1] + yz * p[2];
+  const float sp2 = xz * p[0] + yz * p[1] + zz * p[2];
+  const float sq0 = xx * q[0] + xy * q[1] + xz * q[2];
+  const float sq1 = xy * q[0] + yy * q[1] + yz * q[2];
+  const float sq2 = xz * q[0] + yz * q[1] + zz * q[2];
+  const float ka = p[0] * sp0 + p[1] * sp1 + p[2] * sp2 + 0.3f;
+  const float kb = q[0] * sp0 + q[1] * sp1 + q[2] * sp2;
+  const float kc = q[0] * sq0 + q[1] * sq1 + q[2] * sq2 + 0.3f;
+
+  const float det = ka * kc - kb * kb;
+  o.det_ok = det > 0.0f;
+  const float inv_det = o.det_ok ? 1.0f / fmaxf(det, 1e-12f) : 0.0f;
+  o.ca = kc * inv_det;
+  o.cb = (-kb) * inv_det;
+  o.cc = ka * inv_det;
+  const float mid = 0.5f * (ka + kc);
+  const float disc = sqrtf(fmaxf(mid * mid - det, 0.1f));
+  o.radius = ceilf(3.0f * sqrtf(fmaxf(mid + disc, 0.0f)));
+  if (display_mode == 2) {  // point: flat disc of fixed pixel radius
+    o.radius = fp.r_pt;
+    o.ca = fp.inv_pt;
+    o.cb = 0.0f;
+    o.cc = fp.inv_pt;
+  }
+  return o;
+}
+
+// One colour edit (core/edit.py::apply_edit_components). A record whose
+// ENABLED bit is clear changes nothing. Returns whether it hides the splat.
+__device__ __forceinline__ bool apply_edit(float& r, float& g, float& b, float& opacity,
+                                           uint32_t flags, float er, float eg, float eb,
+                                           float e_contrast, float e_exposure, float e_gamma,
+                                           float e_alpha) {
+  if (!(flags & EDIT_ENABLED)) return false;
+  float ro = er, go = eg, bo = eb;
+  if (!(flags & EDIT_OVERRIDE_COLOR)) {
+    // --- rgb -> hsv ---
+    const float rc = clampf(r, 0.0f, 1.0f), gc = clampf(g, 0.0f, 1.0f), bc = clampf(b, 0.0f, 1.0f);
+    const float maxc = fmaxf(fmaxf(rc, gc), bc);
+    const float minc = fminf(fminf(rc, gc), bc);
+    float v = maxc;
+    const float delta = maxc - minc;
+    float s = maxc > 0.0f ? delta / fmaxf(maxc, 1e-12f) : 0.0f;
+    const float sd = fmaxf(delta, 1e-12f);
+    float hr = (gc - bc) / sd;
+    hr = hr - 6.0f * floorf(hr * (1.0f / 6.0f));
+    const float hg = (bc - rc) / sd + 2.0f;
+    const float hb = (rc - gc) / sd + 4.0f;
+    float h = (maxc == rc ? hr : (maxc == gc ? hg : hb)) * (1.0f / 6.0f);
+    if (!(delta > 0.0f)) h = 0.0f;
+    // --- adjust: hue shift, saturation and value scale ---
+    h = h + er;
+    s = s * eg;
+    v = v * eb;
+    // --- hsv -> rgb ---
+    h = h - floorf(h);
+    const float h6 = h * 6.0f;
+    const float i = floorf(h6);
+    const float f = h6 - i;
+    const float pp = v * (1.0f - s);
+    const float qq = v * (1.0f - s * f);
+    const float tt = v * (1.0f - s * (1.0f - f));
+    switch ((((int)i % 6) + 6) % 6) {  // Python's non-negative remainder
+      case 0: ro = v; go = tt; bo = pp; break;
+      case 1: ro = qq; go = v; bo = pp; break;
+      case 2: ro = pp; go = v; bo = tt; break;
+      case 3: ro = pp; go = qq; bo = v; break;
+      case 4: ro = tt; go = pp; bo = v; break;
+      default: ro = v; go = pp; bo = qq; break;
+    }
+  }
+  const float gam = fmaxf(e_gamma, 1e-6f);
+  const float gain = exp2f(e_exposure);
+  auto tone = [&](float x) {
+    x = (x - 0.5f) * (1.0f + e_contrast) + 0.5f;
+    x = clampf(x * gain, 0.0f, 1.0f);
+    // x^gam with x in [0, 1] as exp2(gam * log2 x); 0 stays 0.
+    return x > 0.0f ? exp2f(gam * log2f(fmaxf(x, 1e-30f))) : 0.0f;
+  };
+  r = tone(ro);
+  g = tone(go);
+  b = tone(bo);
+  opacity = opacity * e_alpha;
+  return (flags & EDIT_HIDDEN) != 0;
+}
+
+// The gates in the reference order (ops/preprocess.py): mask bit, per-splat
+// edit, selection edit, highlight. Edits change colour and opacity in
+// place; returns false when a gate drops the splat.
+__device__ __forceinline__ bool apply_gates(const FrameParams& fp, const IntParams& ip,
+                                            const Gates& gt, int64_t s, float& r, float& g,
+                                            float& b, float& alpha) {
+  bool keep = true;
+  if (ip.gates & GATE_MASK) keep = gt.mask[s] != 0;
+  if (ip.gates & GATE_EDIT) {
+    const float* e = gt.ergb + 3 * s;
+    const float* pr = gt.eparams + 4 * s;
+    const bool hidden = apply_edit(r, g, b, alpha, gt.eflags[s], e[0], e[1], e[2], pr[0], pr[1],
+                                   pr[2], pr[3]);
+    keep = keep && !hidden;
+  }
+  if (ip.gates & (GATE_SEL_EDIT | GATE_HIGHLIGHT)) {
+    const bool sel = gt.sel[s] != 0;
+    if ((ip.gates & GATE_SEL_EDIT) && sel) {
+      const float* e = fp.sel_rgb;
+      const float* pr = fp.sel_params;
+      const bool hidden = apply_edit(r, g, b, alpha, (uint32_t)ip.sel_flags, e[0], e[1], e[2],
+                                     pr[0], pr[1], pr[2], pr[3]);
+      keep = keep && !hidden;
+    }
+    if ((ip.gates & GATE_HIGHLIGHT) && sel) {  // after the selection edit
+      const float ha = fp.highlight[3];
+      const float keep_c = 1.0f - ha;
+      r = r * keep_c + fp.highlight[0] * ha;
+      g = g * keep_c + fp.highlight[1] * ha;
+      b = b * keep_c + fp.highlight[2] * ha;
+    }
+  }
+  return keep;
+}
+
+// Opacity-aware extent: the exact live radius sigma * sqrt(2 ln(a / eps))
+// in splat mode, the 2-sigma flat cut in ellipse mode, as is in point mode.
+__device__ __forceinline__ float live_radius(int display_mode, float radius, float alpha) {
+  if (display_mode == 0) {
+    const float cut = sqrtf(2.0f * fmaxf(logf(alpha * 255.0f), 0.0f));
+    return radius * (cut * (1.0f / 3.0f));
+  }
+  if (display_mode == 1) return radius * (2.0f / 3.0f);
+  return radius;
+}
+
+// Frustum, depth, determinant, alpha and extent cull, and the gates' verdict.
+__device__ __forceinline__ bool splat_valid(const FrameParams& fp, const SplatGeometry& sg,
+                                            float radius, float alpha, bool gate_ok) {
+  const bool on_screen = (sg.px + radius > 0.0f) && (sg.px - radius < fp.width) &&
+                         (sg.py + radius > 0.0f) && (sg.py - radius < fp.height);
+  return sg.det_ok && sg.depth > fp.z_near && sg.depth < fp.z_far && on_screen &&
+         alpha > kAlphaEps && radius > 0.0f && gate_ok;
+}
+
+}  // namespace gs

@@ -8,7 +8,8 @@ from .compression import (
     pod_to_tensors,
 )
 from .gaussian import PLY_GAUSSIAN_POD_DTYPE, PLY_GAUSSIAN_POD_SIZE, Gaussians, inverse_sigmoid, sigmoid
-from .ply import PlyError, PlyHeader, PlyReadStats, read_ply, read_ply_chunks, read_ply_header, write_ply
+from .ply import (PlyError, PlyHeader, PlyReadStats, bake_edits, read_ply, read_ply_chunks,
+                  read_ply_header, write_ply)
 from .synthetic import make_random_scene
 
 __all__ = [
@@ -31,5 +32,6 @@ __all__ = [
     "read_ply_chunks",
     "read_ply_header",
     "write_ply",
+    "bake_edits",
     "make_random_scene",
 ]

@@ -14,7 +14,9 @@ from typing import BinaryIO, Iterator, Optional
 
 import numpy as np
 
-from .gaussian import PLY_GAUSSIAN_POD_DTYPE, PLY_PROPERTIES, Gaussians
+from ..core.edit import EDIT_FLAG_ENABLED, apply_edit_np
+from ..core.sh import SH_C0
+from .gaussian import PLY_GAUSSIAN_POD_DTYPE, PLY_PROPERTIES, Gaussians, inverse_sigmoid, sigmoid
 
 
 class PlyError(ValueError):
@@ -197,6 +199,27 @@ def read_ply(path_or_reader, stats: Optional[PlyReadStats] = None) -> Gaussians:
     return Gaussians.concat(chunks)
 
 
+def bake_edits(g: Gaussians, edit_flags: np.ndarray, edit_rgb: np.ndarray,
+               edit_params: np.ndarray) -> tuple:
+    """Bake per-splat edits into PLY-space coefficients -> (Gaussians, keep
+    mask). The edit acts on the degree-0 colour and the opacity; higher SH
+    bands are kept; hidden splats are dropped through the keep mask;
+    unedited splats keep their exact original coefficients."""
+    flags = np.asarray(edit_flags).astype(np.uint32)
+    base_rgb = np.clip(0.5 + SH_C0 * g.sh0, 0.0, 1.0)
+    rgb2, op2, hidden = apply_edit_np(base_rgb, sigmoid(g.opacity), flags,
+                                      np.asarray(edit_rgb, np.float32),
+                                      np.asarray(edit_params, np.float32))
+    # Unmodified fields alias the input (read-only use).
+    out = Gaussians(pos=g.pos, normal=g.normal, sh0=((rgb2 - 0.5) / SH_C0).astype(np.float32),
+                    sh_rest=g.sh_rest, opacity=inverse_sigmoid(op2).astype(np.float32),
+                    scale=g.scale, rot=g.rot)
+    enabled = (flags & EDIT_FLAG_ENABLED) != 0
+    out.sh0[~enabled] = g.sh0[~enabled]
+    out.opacity[~enabled] = g.opacity[~enabled]
+    return out, ~hidden
+
+
 def write_ply(
     writer: BinaryIO,
     g: Gaussians,
@@ -204,16 +227,16 @@ def write_ply(
     mask: Optional[np.ndarray] = None,
 ) -> int:
     """Write splats as binary-little-endian Inria PLY; returns the count
-    written. `mask` is an optional per-splat keep mask."""
+    written. `edits`: optional (flags (N,), rgb (N, 3), params (N, 4)) to
+    bake; `mask`: optional per-splat keep mask."""
+    keep = np.ones(g.count, bool)
     if edits is not None:
-        raise NotImplementedError(
-            "baking per-splat edits into an export waits for the core/edit "
-            "port (ROADMAP queue A)")
-    out = g
+        g, edit_keep = bake_edits(g, *edits)
+        keep &= edit_keep
     if mask is not None:
-        keep = np.asarray(mask).astype(bool)
-        if not keep.all():
-            out = g.select(keep)
+        keep &= np.asarray(mask).astype(bool)
+    # Boolean indexing copies: skip it when nothing is dropped.
+    out = g if keep.all() else g.select(keep)
     header = io.BytesIO()
     header.write(b"ply\nformat binary_little_endian 1.0\n")
     header.write(f"element vertex {out.count}\n".encode())

@@ -50,9 +50,12 @@ def _decode(chunk, live):
 
 
 def composite_tiles_plain_v2(entries: SortedEntries, cfg: TileConfig,
-                             flat_mode: bool = False) -> torch.Tensor:
+                             flat_mode: bool = False, stats: dict | None = None) -> torch.Tensor:
     """Plain version of K3. Tiles advance chunk by chunk together, at most
-    _TILES_PER_STEP at a time (bounds the (tiles, pixels, 128) temporaries)."""
+    _TILES_PER_STEP at a time (bounds the (tiles, pixels, 128) temporaries).
+    With `stats`, also counts in stats["pairs"] the (pixel, live entry)
+    blends this data needs: for each pixel of the image, its live entries
+    up to and including the one that brings its own T to <= T_EPS."""
     tile, n_tiles = cfg.tile, cfg.n_tiles
     p = tile * tile
     ent = u32(entries.entries)
@@ -70,6 +73,11 @@ def composite_tiles_plain_v2(entries: SortedEntries, cfg: TileConfig,
 
     t_all = torch.ones((n_tiles, p, 1), device=dev)
     rgb_all = torch.zeros((n_tiles, p, 3), device=dev)
+    if stats is not None:
+        pairs = torch.zeros((), dtype=torch.int64, device=dev)
+        tid = torch.arange(n_tiles, device=dev)[:, None]
+        in_image = (((tid // cfg.tiles_x) * tile + lane // tile < cfg.height)
+                    & ((tid % cfg.tiles_x) * tile + lane % tile < cfg.width))  # (T, P)
     max_chunks = int(n_chunks.max()) if n_tiles else 0
     for c in range(max_chunks):
         active = ((c < n_chunks) & (t_all.amax(dim=(1, 2)) > T_EPS)).nonzero().flatten()
@@ -90,9 +98,14 @@ def composite_tiles_plain_v2(entries: SortedEntries, cfg: TileConfig,
             excl = torch.cat([torch.ones_like(incl[..., :1]), incl[..., :-1]], dim=-1)
             w = excl * a
             t = t_all[idx]
+            if stats is not None:
+                needed = live[:, None, :] & (t * excl > T_EPS) & in_image[idx][..., None]
+                pairs += needed.sum()
             sums = torch.stack([(w * r).sum(-1), (w * gr).sum(-1), (w * b).sum(-1)], dim=-1)
             rgb_all[idx] = rgb_all[idx] + t * sums
             t_all[idx] = t * incl[..., -1:]
+    if stats is not None:
+        stats["pairs"] = int(pairs)
     tiles = torch.cat([rgb_all, 1.0 - t_all], dim=-1)  # (T, P, 4)
     img = tiles.reshape(cfg.tiles_y, cfg.tiles_x, tile, tile, 4).permute(0, 2, 1, 3, 4)
     img = img.reshape(cfg.tiles_y * tile, cfg.tiles_x * tile, 4)

@@ -1,11 +1,21 @@
-"""Fused splat front-end: word pod -> unsorted packed entries.
+"""Fused splat front-end and query-geometry pass over the word pod.
 
-`enumerate_entries_fused` is the counterpart of
-`wgpu_3dgs_viewer_app_tpu.ops.fused.enumerate_entries_fused`. On a CUDA pod
-it launches kernel K1 (`csrc/fused.cu`): one pass over the pod doing what
-`preprocess` + `enumerate_entries_from_pre` do. On a CPU pod it runs that
-plain version, `enumerate_entries_plain`. Either way the result is
-(N * max_dup, 4) int32 entries, slot d of splat s at row s * max_dup + d.
+- `enumerate_entries_fused` is the counterpart of
+  `wgpu_3dgs_viewer_app_tpu.ops.fused.enumerate_entries_fused`. On a CUDA pod
+  it launches kernel K1 (`csrc/fused.cu`): one pass over the pod doing what
+  `preprocess` + `enumerate_entries_from_pre` do, gates included. On a CPU
+  pod it runs that plain version, `enumerate_entries_plain`. Either way the
+  result is (N * max_dup, 4) int32 entries, slot d of splat s at row
+  s * max_dup + d.
+- `preprocess_geometry_fused` is the counterpart of the JAX function of the
+  same name: the degree-0 preprocess the selection and hit queries read. On
+  a CUDA pod it launches kernel K4 (`csrc/geometry.cu`); on a CPU pod it
+  runs its plain version, `preprocess_geometry_plain`.
+
+The kernels read the gate tensors where they lie: `mask_bits` and
+`selection_bits` as (N,) uint8, the per-splat edit as int32 flags (N,),
+f32 rgb (N, 3) and f32 params (N, 4). The scene-wide selection edit and
+highlight ride the frame scalars.
 """
 
 from __future__ import annotations
@@ -17,67 +27,116 @@ import torch
 from ..data.compression import Compressions, Cov3dCompression, ShCompression
 from . import kernels
 from .binning import SortedEntries, TileConfig, enumerate_entries_from_pre
-from .preprocess import check_ungated, frame_scalars, preprocess
+from .preprocess import (PreprocessOut, frame_scalars, highlight_scalars, preprocess,
+                         selection_edit_scalars)
 from .sort import sort_entries
 
 _SH_CODE = {ShCompression.SINGLE: 0, ShCompression.HALF: 1, ShCompression.NORM8: 2,
             ShCompression.REMOVE: 3}
 _SH_ROWS = {ShCompression.SINGLE: (45, torch.float32), ShCompression.HALF: (23, torch.int32),
             ShCompression.NORM8: (12, torch.int32)}
+# Gate bits of `csrc/splat.cuh::IntParams::gates`.
+GATE_MASK, GATE_EDIT, GATE_SEL_EDIT, GATE_HIGHLIGHT = 1, 2, 4, 8
+_FRAME_FLOATS, _INT_PARAMS = 55, 13
 
 
-def _frame_param_array(fs: dict, cfg: TileConfig) -> list:
-    """The 44 f32 frame scalars in `csrc/fused.cu::FrameParams` order."""
+def _frame_param_array(fs: dict, cfg, scene_consts=(0.0,) * 11) -> list:
+    """The 55 f32 frame scalars in `csrc/splat.cuh::FrameParams` order;
+    `scene_consts`: selection-edit rgb (3) and params (4), highlight (4)."""
     flat = lambda rows: [v for row in rows for v in row]  # noqa: E731
+    depth = [cfg.depth_scale, float(2 ** cfg.v2_depth_bits - 1)] if cfg is not None else [0.0, 0.0]
     vals = (flat(fs["m3"]) + list(fs["mt"]) + flat(fs["v3"]) + list(fs["vt"])
             + [fs[k] for k in ("p00", "p11", "fx", "fy", "tanx", "tany", "limx", "limy",
                                "width", "height", "size2", "r_pt", "inv_pt")]
-            + list(fs["cam"])
-            + [fs["z_near"], fs["z_far"], cfg.depth_scale, float(2 ** cfg.v2_depth_bits - 1)])
-    assert len(vals) == 44, len(vals)
+            + list(fs["cam"]) + [fs["z_near"], fs["z_far"]] + depth + list(scene_consts))
+    assert len(vals) == _FRAME_FLOATS, len(vals)
     return vals
+
+
+def _i32(v: int) -> int:
+    """A u32 value as the int32 with the same bits."""
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def _cuda_gates(n: int, device, mask_bits=None, edit=None, selection_bits=None,
+                selection_edit=None, highlight_rgba=None) -> tuple:
+    """Check the gate tensors a kernel reads and return (gate bits,
+    selection-edit flags, the 11 scene constants, [mask, sel, flags, rgb,
+    params] tensors or None)."""
+    code, sel_flags, consts = 0, 0, [0.0] * 11
+    tensors = [None] * 5
+    if mask_bits is not None:
+        kernels.require(mask_bits, "mask_bits", torch.uint8, (n,), device)
+        code |= GATE_MASK
+        tensors[0] = mask_bits
+    if edit is not None:
+        flags, rgb, params = edit
+        kernels.require(flags, "edit flags", torch.int32, (n,), device)
+        kernels.require(rgb, "edit rgb", torch.float32, (n, 3), device)
+        kernels.require(params, "edit params", torch.float32, (n, 4), device)
+        code |= GATE_EDIT
+        tensors[2:] = [flags, rgb, params]
+    if selection_bits is not None and (selection_edit is not None or highlight_rgba is not None):
+        kernels.require(selection_bits, "selection_bits", torch.uint8, (n,), device)
+        tensors[1] = selection_bits
+        if selection_edit is not None:
+            sel_flags, rgb, params = selection_edit_scalars(selection_edit)
+            consts[:7] = rgb + params
+            code |= GATE_SEL_EDIT
+        if highlight_rgba is not None:
+            consts[7:] = highlight_scalars(highlight_rgba)
+            code |= GATE_HIGHLIGHT
+    return code, _i32(sel_flags), consts, tensors
+
+
+def _require_pod(pod: dict, comp: Compressions, n: int, sh: bool) -> None:
+    dev = pod["color0"].device
+    kernels.require(pod["pos"], "pos", torch.float32, (3, n), dev)
+    kernels.require(pod["color0"], "color0", torch.int32, (n,), dev)
+    if comp.cov3d == Cov3dCompression.SINGLE:
+        kernels.require(pod["cov3d"], "cov3d", torch.float32, (6, n), dev)
+    else:
+        kernels.require(pod["cov3d"], "cov3d", torch.int32, (3, n), dev)
+    if sh and comp.sh != ShCompression.REMOVE:
+        rows, dtype = _SH_ROWS[comp.sh]
+        kernels.require(pod["sh"], "sh", dtype, (rows, n), dev)
+    if sh and comp.sh == ShCompression.NORM8:
+        kernels.require(pod["sh_mn"], "sh_mn", torch.float32, (n,), dev)
+        kernels.require(pod["sh_span"], "sh_span", torch.float32, (n,), dev)
 
 
 def enumerate_entries_plain(pod: dict, comp: Compressions, cfg: TileConfig, view, proj, model,
                             sh_degree: int = 3, no_sh0: bool = False, size: float = 1.0,
-                            display_mode: int = 0) -> torch.Tensor:
-    """Plain version of K1: preprocess, then enumerate and pack."""
+                            display_mode: int = 0, **gates) -> torch.Tensor:
+    """Plain version of K1: preprocess (gates included), then enumerate and
+    pack."""
     pre = preprocess(pod, comp, view, proj, model, cfg.width, cfg.height, sh_degree=sh_degree,
-                     no_sh0=no_sh0, size=size, display_mode=display_mode)
+                     no_sh0=no_sh0, size=size, display_mode=display_mode, **gates)
     return enumerate_entries_from_pre(pre, cfg)
 
 
 def _enumerate_entries_cuda(pod, comp, cfg, view, proj, model, sh_degree, no_sh0, size,
-                            display_mode) -> torch.Tensor:
+                            display_mode, gates: dict) -> torch.Tensor:
     lib = kernels.library()
     n = pod["color0"].shape[-1]
-    kernels.require(pod["pos"], "pos", torch.float32, (3, n))
-    kernels.require(pod["color0"], "color0", torch.int32, (n,))
-    if comp.cov3d == Cov3dCompression.SINGLE:
-        kernels.require(pod["cov3d"], "cov3d", torch.float32, (6, n))
-    else:
-        kernels.require(pod["cov3d"], "cov3d", torch.int32, (3, n))
-    sh = mn = span = None
-    if comp.sh != ShCompression.REMOVE:
-        rows, dtype = _SH_ROWS[comp.sh]
-        sh = pod["sh"]
-        kernels.require(sh, "sh", dtype, (rows, n))
-    if comp.sh == ShCompression.NORM8:
-        mn, span = pod["sh_mn"], pod["sh_span"]
-        kernels.require(mn, "sh_mn", torch.float32, (n,))
-        kernels.require(span, "sh_span", torch.float32, (n,))
+    _require_pod(pod, comp, n, sh=True)
     if not 0 <= sh_degree <= 3 or display_mode not in (0, 1, 2):
         raise ValueError(f"sh_degree {sh_degree} / display_mode {display_mode} out of range")
+    code, sel_flags, consts, gt = _cuda_gates(n, pod["color0"].device, **gates)
     fs = frame_scalars(view, proj, model, cfg.width, cfg.height, size)
-    frame = (ctypes.c_float * 44)(*_frame_param_array(fs, cfg))
-    iparams = (ctypes.c_int * 11)(
+    frame = (ctypes.c_float * _FRAME_FLOATS)(*_frame_param_array(fs, cfg, consts))
+    iparams = (ctypes.c_int * _INT_PARAMS)(
         n, _SH_CODE[comp.sh], int(comp.cov3d == Cov3dCompression.HALF), sh_degree, int(no_sh0),
-        display_mode, cfg.tile, cfg.tiles_x, cfg.tiles_y, cfg.max_dup, cfg._tile_shift)
+        display_mode, cfg.tile, cfg.tiles_x, cfg.tiles_y, cfg.max_dup, cfg._tile_shift,
+        code, sel_flags)
     out = torch.empty((n * cfg.max_dup, 4), dtype=torch.int32, device=pod["color0"].device)
     p = kernels.ptr
+    sh = pod.get("sh") if comp.sh != ShCompression.REMOVE else None
+    mn, span = (pod["sh_mn"], pod["sh_span"]) if comp.sh == ShCompression.NORM8 else (None, None)
     kernels.check(lib.gs_fused_frontend(frame, iparams, p(pod["pos"]), p(pod["color0"]),
-                                        p(pod["cov3d"]), p(sh), p(mn), p(span), p(out),
-                                        kernels.stream()), "gs_fused_frontend")
+                                        p(pod["cov3d"]), p(sh), p(mn), p(span),
+                                        *(p(t) for t in gt), p(out), kernels.stream()),
+                  "gs_fused_frontend")
     kernels.LAUNCHES["fused"] += 1
     return out
 
@@ -101,13 +160,13 @@ def enumerate_entries_fused(
 ) -> torch.Tensor:
     """pod -> (N * max_dup, 4) int32 entries: kernel K1 on a CUDA pod, the
     plain version on a CPU pod. `view`, `proj`, `model`: (4, 4) f32 host
-    matrices."""
-    check_ungated(mask_bits=mask_bits, edit=edit, selection_bits=selection_bits,
-                  selection_edit=selection_edit, highlight_rgba=highlight_rgba)
+    matrices. Gates as in `preprocess`; only the given ones cost anything."""
+    gates = dict(mask_bits=mask_bits, edit=edit, selection_bits=selection_bits,
+                 selection_edit=selection_edit, highlight_rgba=highlight_rgba)
     args = (pod, comp, cfg, view, proj, model, sh_degree, no_sh0, size, display_mode)
     if pod["color0"].device.type == "cpu":
-        return enumerate_entries_plain(*args)
-    return _enumerate_entries_cuda(*args)
+        return enumerate_entries_plain(*args, **gates)
+    return _enumerate_entries_cuda(*args, gates)
 
 
 def build_sorted_entries_fused(
@@ -127,3 +186,48 @@ def build_sorted_entries_fused(
     entries = enumerate_entries_fused(pod, comp, cfg, view, proj, model, sh_degree, no_sh0,
                                       size, display_mode, **gates)
     return sort_entries(entries, cfg)
+
+
+def preprocess_geometry_plain(pod: dict, comp: Compressions, view, proj, model, width: int,
+                              height: int, size: float = 1.0, display_mode: int = 0,
+                              mask_bits=None, edit=None) -> PreprocessOut:
+    """Plain version of K4: the preprocess at SH degree 0."""
+    return preprocess(pod, comp, view, proj, model, width, height, sh_degree=0, size=size,
+                      display_mode=display_mode, mask_bits=mask_bits, edit=edit)
+
+
+def _geometry_cuda(pod, comp, view, proj, model, width, height, size, display_mode, mask_bits,
+                   edit) -> PreprocessOut:
+    lib = kernels.library()
+    n = pod["color0"].shape[-1]
+    dev = pod["color0"].device
+    _require_pod(pod, comp, n, sh=False)
+    if display_mode not in (0, 1, 2):
+        raise ValueError(f"display_mode {display_mode} out of range")
+    code, _, _, gt = _cuda_gates(n, dev, mask_bits=mask_bits, edit=edit)
+    fs = frame_scalars(view, proj, model, width, height, size)
+    frame = (ctypes.c_float * _FRAME_FLOATS)(*_frame_param_array(fs, None))
+    iparams = (ctypes.c_int * _INT_PARAMS)(
+        n, 0, int(comp.cov3d == Cov3dCompression.HALF), 0, 0, display_mode, 0, 0, 0, 0, 0,
+        code, 0)
+    planes = torch.empty((11, n), dtype=torch.float32, device=dev)
+    valid = torch.empty(n, dtype=torch.bool, device=dev)
+    p = kernels.ptr
+    mask, _, flags, rgb, params = gt
+    kernels.check(lib.gs_geometry(frame, iparams, p(pod["pos"]), p(pod["color0"]),
+                                  p(pod["cov3d"]), p(mask), p(flags), p(rgb), p(params),
+                                  p(planes), p(valid), kernels.stream()), "gs_geometry")
+    kernels.LAUNCHES["geometry"] += 1
+    return PreprocessOut(*planes.unbind(0), valid=valid)
+
+
+def preprocess_geometry_fused(pod: dict, comp: Compressions, view, proj, model, width: int,
+                              height: int, size: float = 1.0, display_mode: int = 0,
+                              mask_bits=None, edit=None) -> PreprocessOut:
+    """Degree-0 per-splat geometry for the queries -> PreprocessOut: kernel
+    K4 on a CUDA pod, the plain version on a CPU pod. Gates: `mask_bits` and
+    the per-splat `edit`, as in `preprocess`."""
+    args = (pod, comp, view, proj, model, width, height, size, display_mode, mask_bits, edit)
+    if pod["color0"].device.type == "cpu":
+        return preprocess_geometry_plain(*args)
+    return _geometry_cuda(*args)

@@ -32,7 +32,7 @@ BUILD_DIR = Path(os.environ.get("GS_TORCH_BUILD_DIR", CSRC.parent / "_build"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--fmad=false"]
 
-LAUNCHES = {"fused": 0, "sort": 0, "composite": 0}
+LAUNCHES = {"fused": 0, "sort": 0, "composite": 0, "geometry": 0}
 # Seconds the last build in this process took (None: no build ran).
 build_seconds = None
 
@@ -42,7 +42,8 @@ _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "gs_fused_frontend": [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I)] + [_P] * 8,
+    "gs_fused_frontend": [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I)] + [_P] * 13,
+    "gs_geometry": [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I)] + [_P] * 10,
     "gs_sort_num_blocks": [ctypes.c_longlong],
     "gs_sort_count_live": [_P, ctypes.c_longlong, _P, _P, _P],
     "gs_sort_compact_radix": [_P, ctypes.c_longlong, _P, _P, _P, _I, _P, _P, _P],
@@ -126,10 +127,13 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def require(t: torch.Tensor, name: str, dtype, shape: tuple) -> None:
-    """Check that `t` is a contiguous CUDA tensor of `dtype` and `shape`."""
+def require(t: torch.Tensor, name: str, dtype, shape: tuple, device=None) -> None:
+    """Check that `t` is a contiguous CUDA tensor of `dtype` and `shape`
+    (on `device`, when given)."""
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
         raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)}, got "
                          f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")

@@ -1,11 +1,15 @@
-"""Per-splat preprocess, plain torch: the ungated
-`wgpu_3dgs_viewer_app_tpu.ops.preprocess.preprocess`.
+"""Per-splat preprocess, plain torch: the counterpart of
+`wgpu_3dgs_viewer_app_tpu.ops.preprocess.preprocess`, gates included.
 
-model + view transform -> 3D cov -> EWA conic -> SH->RGB -> opacity-aware
-extent -> frustum/alpha cull. Culled splats keep their slot with
-valid=False and alpha 0. Together with `binning.enumerate_entries_from_pre`
-it is the plain version of the front-end kernel (`csrc/fused.cu`), which
-evaluates the same expressions from the same `frame_scalars`.
+model + view transform -> 3D cov -> EWA conic -> SH->RGB -> gates and edits
+(mask bits, per-splat edit, scene-wide selection edit, highlight) ->
+opacity-aware extent -> frustum/alpha cull. Culled splats keep their slot
+with valid=False and alpha 0. Together with `binning.enumerate_entries_from_pre`
+it is the plain version of the front-end kernel K1 (`csrc/fused.cu`); at SH
+degree 0 it is the plain version of the query-geometry kernel K4
+(`csrc/geometry.cu`). Both kernels evaluate the same expressions from the
+same `frame_scalars`, and the edits through the component form
+(`core.edit.apply_edit_components`), as the kernels do.
 """
 
 from __future__ import annotations
@@ -16,27 +20,44 @@ import numpy as np
 import torch
 
 from ..core.covariance import cov2d_to_conic_radius, project_cov3d_to_cov2d, transform_cov6_t
+from ..core.edit import apply_edit_components
 from ..core.sh import eval_sh_rest_channels
 from ..data.compression import Compressions, cov3d_components, make_sh_coeff_fn, unpack_color0
 
 ALPHA_EPS = 1.0 / 255.0
 
-# Inputs of the JAX preprocess that the port does not carry yet.
-GATING_TODO = ("per-splat gating (mask bits, per-splat edits, selection edit and "
-               "highlight) waits for the gated front-end port (ROADMAP queue A)")
+
+def host_array(x) -> np.ndarray:
+    """A host copy of a scalar, array or tensor."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
-def check_ungated(**gates) -> None:
-    """Raise for any gating input: the port renders ungated frames only."""
-    given = [k for k, v in gates.items() if v is not None]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)}: {GATING_TODO}")
+def selection_edit_scalars(selection_edit) -> tuple:
+    """Scene-wide selection edit (flags, rgb (3,), params (4,)) -> (int
+    flags, 3 + 4 f32-exact floats), as the kernels take them."""
+    flags, rgb, params = selection_edit
+    flags = int(host_array(flags).astype(np.int64).reshape(()))
+    rgb = host_array(rgb).astype(np.float32).reshape(3).tolist()
+    params = host_array(params).astype(np.float32).reshape(4).tolist()
+    return flags & 0xFFFFFFFF, rgb, params
+
+
+def highlight_scalars(highlight_rgba) -> list:
+    """Highlight rgba (4,) -> four f32-exact floats."""
+    return host_array(highlight_rgba).astype(np.float32).reshape(4).tolist()
+
+
+def _and(a, b):
+    return b if a is None else a & b
 
 
 @dataclasses.dataclass
 class PreprocessOut:
     """Per-splat screen-space quantities, each a flat (N,) tensor (f32;
-    `valid` bool)."""
+    `valid` bool). The stacked `mean2d`/`conic`/`rgb` views serve the
+    query code."""
 
     mean_x: torch.Tensor   # pixel coords
     mean_y: torch.Tensor
@@ -49,7 +70,19 @@ class PreprocessOut:
     alpha: torch.Tensor    # opacity; 0 where culled
     depth: torch.Tensor    # view-space depth (> 0 in front)
     radius: torch.Tensor   # pixel radius of the live extent
-    valid: torch.Tensor    # survives culling
+    valid: torch.Tensor    # survives culling and gating
+
+    @property
+    def mean2d(self) -> torch.Tensor:  # (N, 2)
+        return torch.stack([self.mean_x, self.mean_y], dim=-1)
+
+    @property
+    def conic(self) -> torch.Tensor:  # (N, 3)
+        return torch.stack([self.conic_a, self.conic_b, self.conic_c], dim=-1)
+
+    @property
+    def rgb(self) -> torch.Tensor:  # (N, 3)
+        return torch.stack([self.col_r, self.col_g, self.col_b], dim=-1)
 
 
 def _f32(x) -> float:
@@ -125,9 +158,14 @@ def preprocess(
     highlight_rgba=None,
 ) -> PreprocessOut:
     """The per-splat preprocess over the flat word pod (tensors on any
-    device). `view`, `proj`, `model`: (4, 4) f32 host matrices."""
-    check_ungated(mask_bits=mask_bits, edit=edit, selection_bits=selection_bits,
-                  selection_edit=selection_edit, highlight_rgba=highlight_rgba)
+    device). `view`, `proj`, `model`: (4, 4) f32 host matrices.
+
+    Gates, as in the JAX preprocess: `mask_bits` (N,) keeps splats whose
+    bit is set; `edit` is the per-splat edit SoA (flags (N,), rgb (N, 3),
+    params (N, 4)); `selection_edit` (flags, rgb (3,), params (4,)) and
+    `highlight_rgba` (4,) apply to the splats whose `selection_bits` (N,)
+    bit is set, and only when `selection_bits` is given. Edits act before
+    the opacity-aware extent, so an edited alpha shapes radius and key."""
     fs = frame_scalars(view, proj, model, width, height, size, z_near, z_far)
     pos = pod["pos"]
     (c0_r, c0_g, c0_b), alpha = unpack_color0(pod)
@@ -170,6 +208,32 @@ def preprocess(
         col = tuple(b if torch.is_tensor(b) else torch.full_like(c0_r, b) for b in base)
     col_r, col_g, col_b = (torch.clamp(c, 0.0, 1.0) for c in col)
 
+    # --- gates and edits: mask, per-splat edit, selection edit, highlight ---
+    dev = pos.device
+    gate = None
+    if mask_bits is not None:
+        gate = torch.as_tensor(mask_bits, device=dev) != 0
+    if edit is not None:
+        e_flags, e_rgb, e_params = (torch.as_tensor(x, device=dev) for x in edit)
+        col_r, col_g, col_b, alpha, hidden = apply_edit_components(
+            col_r, col_g, col_b, alpha, e_flags, *e_rgb.to(torch.float32).unbind(-1),
+            *e_params.to(torch.float32).unbind(-1))
+        gate = _and(gate, ~hidden)
+    if selection_bits is not None and (selection_edit is not None or highlight_rgba is not None):
+        sel = torch.as_tensor(selection_bits, device=dev) != 0
+        if selection_edit is not None:
+            s_flags, s_rgb, s_params = selection_edit_scalars(selection_edit)
+            consts = torch.tensor(s_rgb + s_params, dtype=torch.float32, device=dev)
+            flags = torch.where(sel, s_flags, 0)
+            col_r, col_g, col_b, alpha, hidden = apply_edit_components(
+                col_r, col_g, col_b, alpha, flags, *consts.unbind())
+            gate = _and(gate, ~hidden)
+        if highlight_rgba is not None:
+            hl = np.asarray(highlight_scalars(highlight_rgba), np.float32)
+            keep = float(np.float32(1.0) - hl[3])
+            col_r, col_g, col_b = (torch.where(sel, c * keep + float(hl[k] * hl[3]), c)
+                                   for k, c in enumerate((col_r, col_g, col_b)))
+
     # --- opacity-aware extent: exact live radius sigma*sqrt(2 ln(a/eps))
     # in splat mode, the 2-sigma flat cut in ellipse mode ---
     if display_mode == 0:
@@ -182,6 +246,8 @@ def preprocess(
                  & (py + radius > 0) & (py - radius < fs["height"]))
     valid = (det_ok & (depth > fs["z_near"]) & (depth < fs["z_far"]) & on_screen
              & (alpha > ALPHA_EPS) & (radius > 0))
+    if gate is not None:
+        valid = valid & gate
     alpha = torch.where(valid, alpha, torch.zeros_like(alpha))
     return PreprocessOut(
         mean_x=px, mean_y=py, conic_a=ca, conic_b=cb, conic_c=cc,

@@ -1,5 +1,6 @@
 """Comparisons shared by the tests and `chip_smoke.py`: front-end entries
-against entries, sorted entries against sorted entries.
+against entries, sorted entries against sorted entries, per-splat
+preprocess outputs against preprocess outputs.
 
 Entry tolerance (front-end vs front-end, slot for slot). Two front-ends fed
 the same pod may round a transcendental (log, exp, rsqrt) an ulp apart, so:
@@ -84,3 +85,38 @@ def compare_sorted(a, b) -> dict:
         va, vb = (np.asarray(getattr(x, name).cpu()) for x in (a, b))
         _require(np.array_equal(va, vb), f"{name} differ")
     return {"n_valid": a.n_valid}
+
+
+PRE_FIELDS = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "col_r", "col_g", "col_b",
+              "alpha", "depth", "radius")
+
+
+def compare_preprocess(a, b, min_valid_equal: float = 0.999, rtol: float = 1e-6,
+                       atol: float = 1e-6) -> dict:
+    """Check two PreprocessOut splat for splat: `valid` equal on at least
+    `min_valid_equal` of the splats, and every field within rtol/atol where
+    both are valid (a kernel and its plain version on the card are expected
+    to agree to the bit; the tolerance allows an ulp of a transcendental).
+    Returns stats, with the largest absolute field difference and the share
+    of bit-identical values; raises AssertionError when out of tolerance."""
+    va, vb = (np.asarray(x.valid.detach().cpu()) for x in (a, b))
+    _require(va.shape == vb.shape, f"shapes differ: {va.shape} vs {vb.shape}")
+    both = va & vb
+    same_valid = float((va == vb).mean()) if va.size else 1.0
+    max_err, identical, worst = 0.0, 0, ""
+    for f in PRE_FIELDS:
+        x = np.asarray(getattr(a, f).detach().cpu())[both]
+        y = np.asarray(getattr(b, f).detach().cpu())[both]
+        d = np.abs(x.astype(np.float64) - y)
+        identical += int((x.view(np.uint32) == y.view(np.uint32)).sum())
+        bad = d > atol + rtol * np.abs(y)
+        if d.size and float(d.max()) > max_err:
+            max_err = float(d.max())
+        if bad.any():
+            worst = f"{f}: {int(bad.sum())} values out of tolerance, max abs {float(d.max())}"
+    stats = {"splats": int(va.size), "valid": int(both.sum()), "valid_equal": same_valid,
+             "identical": identical / max(both.sum() * len(PRE_FIELDS), 1),
+             "max_abs_err": max_err}
+    _require(same_valid >= min_valid_equal, f"validity differs on too many splats: {stats}")
+    _require(not worst, f"{worst}: {stats}")
+    return stats
