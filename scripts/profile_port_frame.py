@@ -4,12 +4,16 @@ few frames of a BASELINE cell, device time per kernel and the idle share.
 
     python3 scripts/profile_port_frame.py --config 1   # 6M splats, Viewer.render
     python3 scripts/profile_port_frame.py --config 3   # 2M splats, select + edit step
+    python3 scripts/profile_port_frame.py --config 2 --route fused    # 3 x 1M, merged frame
+    python3 scripts/profile_port_frame.py --config 2 --route staged
 
 Config 1 is the plain orbit frame; config 3 is the selection-and-editing
 step that `chip_smoke.py` phase 5 times (`chip_smoke.config3_step`: query
 geometry -> select_rect -> set_selection -> selection edit + highlight ->
-Viewer.render). Both at
-1920x1080, SH 3, norm8 SH + half cov3d, tile 32, max_dup 4. Prints one line
+Viewer.render); both at 1920x1080. Config 2 is the merged three-model frame
+that phase 6 times (`chip_smoke.config2_frame`) at 1920x1088, on the fused
+front-end route (K1 per model) or the staged one (plain preprocess + K5 per
+model). All at SH 3, norm8 SH + half cov3d, tile 32, max_dup 4. Prints one line
 per kernel (ms per frame, share of device time), the device's busy and
 wall time over the profiled frames, and the card's name and power limit.
 Needs a CUDA device.
@@ -37,7 +41,9 @@ def main() -> int:
     from wgpu_3dgs_viewer_app_tpu_torch.viewer import Viewer
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", type=int, choices=(1, 3), default=3)
+    ap.add_argument("--config", type=int, choices=(1, 2, 3), default=3)
+    ap.add_argument("--route", choices=("fused", "staged"), default="fused",
+                    help="front-end route of config 2")
     ap.add_argument("--frames", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -46,10 +52,17 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
                           "-i", "0"], capture_output=True, text=True, check=True).stdout.strip()
     kernels.library()
-    g, cam = chip_smoke.config1_scene() if args.config == 1 else chip_smoke.config3_scene()
-    v = Viewer(g, 1920, 1080, tile=32, max_dup=4, device="cuda")
-    v.update_camera(cam)
-    step = v.render if args.config == 1 else chip_smoke.config3_step(v)
+    if args.config == 2:
+        models = chip_smoke.config2_models()
+        n_splats, what = sum(g.count for g in models), f"config 2 ({args.route} route)"
+        step = chip_smoke.config2_frame(chip_smoke.config2_viewer(models, "cuda"),
+                                        args.route == "fused")
+    else:
+        g, cam = chip_smoke.config1_scene() if args.config == 1 else chip_smoke.config3_scene()
+        n_splats, what = g.count, f"config {args.config}"
+        v = Viewer(g, 1920, 1080, tile=32, max_dup=4, device="cuda")
+        v.update_camera(cam)
+        step = v.render if args.config == 1 else chip_smoke.config3_step(v)
 
     for _ in range(2):
         step()
@@ -67,7 +80,7 @@ def main() -> int:
     busy = sum(ms for _, ms, _ in rows)
     if busy <= 0:
         raise RuntimeError("the profiler saw no device time")
-    print(f"config {args.config}: {g.count} splats, {args.frames} frames, {wall:.3f} ms wall "
+    print(f"{what}: {n_splats} splats, {args.frames} frames, {wall:.3f} ms wall "
           f"({wall / args.frames:.3f} ms/frame under the profiler), device busy {busy:.3f} ms, "
           f"idle share {1 - busy / wall:.3f}")
     for name, ms, count in sorted(rows, key=lambda r: -r[1]):

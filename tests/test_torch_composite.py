@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one torch thread per test process)
 from wgpu_3dgs_viewer_app_tpu.ops import binning as jbin
 from wgpu_3dgs_viewer_app_tpu.ops.composite import composite_tiles_pallas_v2
 from wgpu_3dgs_viewer_app_tpu_torch.convert import sorted_entries_from_jax, sorted_entries_to_jax

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one torch thread per test process)
 from wgpu_3dgs_viewer_app_tpu.core import camera as jcam
 from wgpu_3dgs_viewer_app_tpu.core import covariance as jcov
 from wgpu_3dgs_viewer_app_tpu.core import f16 as jf16

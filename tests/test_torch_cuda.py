@@ -1,7 +1,8 @@
 """Card tests: each hand-written CUDA kernel against its plain torch version
 on the same CUDA tensors (the front-end K1 ungated and gated, the entry
-sort K2, the compositor K3, the query geometry K4), the wrappers' input
-checks, and the whole slice on the card against the CPU.
+sort K2, the compositor K3, the query geometry K4, the enumerate-and-pack
+kernel K5, K1 with a model rank), the wrappers' input checks, and the whole
+slice on the card against the CPU, the merged multi-model frame included.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -23,13 +24,16 @@ from wgpu_3dgs_viewer_app_tpu_torch.core import edit as tedit
 from wgpu_3dgs_viewer_app_tpu_torch.data import (
     ALL_COMPRESSIONS, flat_pod_to_words, make_random_scene, pack_gaussians, pod_to_tensors,
     read_ply)
+from wgpu_3dgs_viewer_app_tpu_torch.core import ModelTransform
 from wgpu_3dgs_viewer_app_tpu_torch.ops import (
-    SENTINEL, TileConfig, build_sorted_entries_fused, composite_tiles_plain_v2,
-    composite_tiles_v2, enumerate_entries_fused, enumerate_entries_plain, kernels,
-    preprocess_geometry_fused, preprocess_geometry_plain, sort_entries, sort_entries_plain)
+    SENTINEL, PreprocessOut, TileConfig, build_sorted_entries, build_sorted_entries_fused,
+    composite_tiles_plain_v2, composite_tiles_v2, enumerate_entries_from_pre,
+    enumerate_entries_from_pre_plain, enumerate_entries_fused, enumerate_entries_plain, kernels,
+    preprocess, preprocess_geometry_fused, preprocess_geometry_plain, sort_entries,
+    sort_entries_plain)
 from wgpu_3dgs_viewer_app_tpu_torch.testing import (compare_entries, compare_preprocess,
                                                     compare_sorted)
-from wgpu_3dgs_viewer_app_tpu_torch.viewer import Viewer
+from wgpu_3dgs_viewer_app_tpu_torch.viewer import MultiModelViewer, Viewer
 
 pytestmark = pytest.mark.cuda
 
@@ -241,7 +245,8 @@ def test_viewer_on_card_matches_cpu(dev):
         [math.sin(yaw), 0.3, math.cos(yaw)], np.float32))
     kernels.reset_launch_counts()
     got = Viewer(g, 256, 256, max_dup=16, device=dev).render(cam)
-    assert kernels.LAUNCHES == {"fused": 1, "sort": 1, "composite": 1, "geometry": 0}
+    assert kernels.LAUNCHES == {"fused": 1, "sort": 1, "composite": 1, "geometry": 0,
+                                "enum_pack": 0}
     ref = Viewer(g, 256, 256, max_dup=16, device="cpu").render(cam)
     # CPU and card transcendentals may move a depth key by one step, which
     # can reorder near-ties: hold the two to the golden gate.
@@ -272,5 +277,118 @@ def test_gated_viewer_on_card_matches_cpu(dev):
         kernels.reset_launch_counts()
         imgs.append(v.render(cam).cpu())
         if device == dev:
-            assert kernels.LAUNCHES == {"fused": 1, "sort": 1, "composite": 1, "geometry": 0}
+            assert kernels.LAUNCHES == {"fused": 1, "sort": 1, "composite": 1, "geometry": 0,
+                                "enum_pack": 0}
     assert_golden_close(_u8(imgs[0]), _u8(imgs[1]))
+
+
+# --- K5 (enumerate and pack) and the model rank --------------------------------
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("d", [4, 8, 16])
+@pytest.mark.parametrize("bits,rank", [(0, 0), (2, 3)])
+def test_enum_pack_kernel_matches_plain(dev, tile, d, bits, rank):
+    """K5 vs `enumerate_entries_from_pre_plain` on the same planes, every
+    slot bit for bit: 10,007 splats (not a multiple of the 128-thread block),
+    wide enough to fall partly off screen, a quarter masked out (invalid)."""
+    comp = ALL_COMPRESSIONS[5]
+    n = 10_007
+    pod = _pod(comp, n, dev, seed=4, extent=4.0)
+    view, proj = _camera(640, 360, pos=(0.3, 0.2, -4.0))
+    mask = torch.from_numpy((np.arange(n) % 4 != 0).astype(np.uint8)).to(dev)
+    pre = preprocess(pod, comp, view, proj, EYE, 640, 360, mask_bits=mask)
+    n_valid = int(pre.valid.sum())
+    assert 0 < n_valid < 0.7 * n  # masked and off-screen splats are invalid
+    cfg = TileConfig(640, 360, tile=tile, max_dup=d, model_bits=bits)
+    before = kernels.LAUNCHES["enum_pack"]
+    got = enumerate_entries_from_pre(pre, cfg, model_rank=rank)
+    assert kernels.LAUNCHES["enum_pack"] == before + 1
+    ref = enumerate_entries_from_pre_plain(pre, cfg, model_rank=rank)
+    assert got.shape == (n * d, 4) and got.dtype == torch.int32
+    assert torch.equal(got, ref)
+    keys = got[:, 0].to(torch.int64) & 0xFFFFFFFF
+    live = keys != SENTINEL
+    assert int(live.sum()) > n_valid // 2
+    assert bool(((keys[live] >> cfg._rank_shift) & ((1 << bits) - 1) == rank).all())
+    dead = got.view(n, d, 4)[~pre.valid]
+    assert bool((dead[..., 0] == -1).all()) and int(dead[..., 1:].abs().sum()) == 0
+    out = torch.zeros((n * d + 8, 4), dtype=torch.int32, device=dev)
+    assert enumerate_entries_from_pre(pre, cfg, model_rank=rank, out=out[8:]).data_ptr() == \
+        out[8:].data_ptr()
+    assert torch.equal(out[8:], ref) and int(out[:8].abs().sum()) == 0
+    compare_sorted(build_sorted_entries(pre, cfg, model_rank=rank), sort_entries_plain(ref, cfg))
+
+
+def test_enum_pack_rejects_bad_inputs(dev):
+    comp = ALL_COMPRESSIONS[5]
+    pod = _pod(comp, 500, dev)
+    view, proj = _camera(256, 256)
+    pre = preprocess(pod, comp, view, proj, EYE, 256, 256)
+    cfg = TileConfig(256, 256, tile=16, max_dup=4, model_bits=1)
+    fields = {f: getattr(pre, f) for f in PreprocessOut.__dataclass_fields__}
+    with pytest.raises(ValueError, match="depth"):
+        enumerate_entries_from_pre(PreprocessOut(**dict(fields, depth=pre.depth.double())), cfg)
+    with pytest.raises(ValueError, match="valid"):
+        enumerate_entries_from_pre(PreprocessOut(**dict(fields, valid=pre.valid.to(torch.uint8))),
+                                   cfg)
+    with pytest.raises(ValueError, match="alpha"):
+        enumerate_entries_from_pre(PreprocessOut(**dict(fields, alpha=pre.alpha.cpu())), cfg)
+    with pytest.raises(ValueError, match="model_rank"):
+        enumerate_entries_from_pre(pre, cfg, model_rank=2)
+    with pytest.raises(ValueError, match="out"):
+        enumerate_entries_from_pre(pre, cfg, out=torch.empty((10, 4), dtype=torch.int32,
+                                                             device=dev))
+
+
+@pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
+def test_fused_kernel_with_rank_matches_plain(dev, gated):
+    """K1 with a model rank vs its plain version, every live slot; rank 0
+    under model_bits 0 writes the same low bits as before."""
+    comp = ALL_COMPRESSIONS[5]
+    n = 30_001
+    pod = _pod(comp, n, dev, seed=2)
+    view, proj = _camera(1920, 1088)
+    gates = {}
+    if gated:
+        rng = np.random.default_rng(3)
+        gates["mask_bits"] = torch.from_numpy((rng.random(n) > 0.25).astype(np.uint8)).to(dev)
+    cfg = TileConfig(1920, 1088, tile=32, max_dup=4, model_bits=2)
+    for rank in (0, 1, 3):
+        got = enumerate_entries_fused(pod, comp, cfg, view, proj, EYE, model_rank=rank, **gates)
+        ref = enumerate_entries_plain(pod, comp, cfg, view, proj, EYE, model_rank=rank, **gates)
+        st = compare_entries(got, ref, cfg)
+        assert st["live_a"] > n // 4 and st["far"] == 0
+        keys = got[:, 0].to(torch.int64) & 0xFFFFFFFF
+        live = keys != SENTINEL
+        assert bool(((keys[live] >> cfg._rank_shift) & 3 == rank).all())
+    with pytest.raises(ValueError, match="model_rank"):
+        enumerate_entries_fused(pod, comp, cfg, view, proj, EYE, model_rank=4)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "staged"])
+def test_merged_viewer_on_card_matches_cpu(dev, fused):
+    """Three models merged on the card (either front-end route) vs the plain
+    path on the CPU: the golden gate; and the launch counts of one frame."""
+    views = {}
+    for where in (dev, "cpu"):
+        v = MultiModelViewer(320, 192, tile=16, max_dup=8, device=where, fused=fused)
+        for i, (dx, rot) in enumerate(((-1.0, 0.0), (0.0, 40.0), (1.0, -40.0))):
+            g = make_random_scene(5000, seed=i, extent=1.2, scale_range=(0.01, 0.04))
+            m = v.add_model(f"m{i}", g)
+            v.update_model_transform(f"m{i}", ModelTransform(pos=np.float32([dx, 0, 0]),
+                                                             rot=np.float32([0, rot, 0])))
+            flags, rgb, params = tedit.make_edit_soa(g.count)
+            flags[:] = tedit.EDIT_FLAG_ENABLED
+            rgb[:] = (0.08 * i, 1.1, 1.0)
+            m.buffers.set_edits(flags, rgb, params)
+        views[str(where)] = v
+    cam = CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -4.5))
+    kernels.reset_launch_counts()
+    got = views[str(dev)].render(cam)
+    front = {"fused": 3, "enum_pack": 0} if fused else {"fused": 0, "enum_pack": 3}
+    assert kernels.LAUNCHES == {"sort": 1, "composite": 1, "geometry": 0, **front}
+    ref = views["cpu"].render(cam)
+    img, gold = (np.clip(x.cpu().numpy() * 255.0, 0, 255).astype(np.uint8).astype(np.int16)
+                 for x in (got, ref))
+    assert_golden_close(img, gold)

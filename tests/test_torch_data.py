@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one torch thread per test process)
 from wgpu_3dgs_viewer_app_tpu.core import edit as jedit
 from wgpu_3dgs_viewer_app_tpu.data import compression as jcomp
 from wgpu_3dgs_viewer_app_tpu.data import make_random_scene as j_make_random_scene
@@ -43,7 +44,28 @@ def test_pod_words_byte_equal(i):
     assert set(ref) == set(got)
     for k in ref:
         assert ref[k].dtype == got[k].dtype and ref[k].shape == got[k].shape, k
-        assert ref[k].tobytes() == got[k].tobytes(), f"{tc}: field {k} differs"
+        assert ref[k].tobytes() == got[k].tobytes(), f"{tc}: {_word_diff(k, ref[k], got[k])}"
+
+
+def _word_diff(name, a, b) -> str:
+    """What differs between two equal-shaped pod fields: the field, how many
+    of its words, and (f32 fields) by how many ulps at most and where."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    ne = a != b
+    if a.dtype == np.float32:
+        ne |= np.isnan(a) != np.isnan(b)
+        ia, ib = (x.view(np.int32).astype(np.int64) for x in (a, b))
+        # Ordered-integer form: adjacent floats differ by 1, across zero too.
+        ia, ib = (np.where(i < 0, -(i & 0x7FFFFFFF), i) for i in (ia, ib))
+        ulps = np.abs(ia - ib)
+        worst = np.unravel_index(int(ulps.argmax()), ulps.shape)
+        detail = (f", at most {int(ulps.max())} ulps (at {tuple(int(i) for i in worst)}: "
+                  f"reference {a[worst]!r}, port {b[worst]!r})")
+    else:
+        detail = ""
+    bad = np.argwhere(ne)
+    return (f"field {name} ({a.dtype}, shape {a.shape}) differs in {len(bad)} of {a.size} words"
+            f"{detail}; first at {bad[:5].tolist()}")
 
 
 @pytest.mark.parametrize("i", [1, 5, 6], ids=["single-half", "norm8-half", "remove-single"])

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one torch thread per test process)
 from wgpu_3dgs_viewer_app_tpu.core import edit as jedit
 from wgpu_3dgs_viewer_app_tpu_torch.core import edit as tedit
 

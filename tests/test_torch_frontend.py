@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one torch thread per test process)
 from wgpu_3dgs_viewer_app_tpu.core import CameraOrbitControl as JCamera
 from wgpu_3dgs_viewer_app_tpu.data import compression as jcomp
 from wgpu_3dgs_viewer_app_tpu.data import make_random_scene as j_make_random_scene

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one torch thread per test process)
 from wgpu_3dgs_viewer_app_tpu import query as jq
 from wgpu_3dgs_viewer_app_tpu.core import CameraOrbitControl
 from wgpu_3dgs_viewer_app_tpu.data import (Compressions, Cov3dCompression, ShCompression,

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one torch thread per test process)
 from wgpu_3dgs_viewer_app_tpu.ops import binning as jbin
 from wgpu_3dgs_viewer_app_tpu.ops.sort import merge_sort
 from wgpu_3dgs_viewer_app_tpu_torch.ops import SENTINEL, SortedEntries, TileConfig

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one torch thread per test process)
 from test_golden import assert_golden_close
 from wgpu_3dgs_viewer_app_tpu.core import CameraOrbitControl as JCamera
 from wgpu_3dgs_viewer_app_tpu.core import edit as jedit
@@ -162,12 +163,14 @@ def test_model_management_and_unported_paths():
     assert v.add_model("m", g).file_name == "m"
     assert v.add_model("m", g).file_name == "m (1)"
     assert len(v.model_order()) == 2
-    with pytest.raises(NotImplementedError, match="multi-model"):
-        v.render()
+    both = v.render()  # two visible models: the merged frame (rank in the key)
+    assert both.shape == (48, 64, 3) and bool(torch.isfinite(both).all())
     v.models["m (1)"].visible = False
     img = v.render()
     assert img.shape == (48, 64, 3) and bool(torch.isfinite(img).all())
     assert float(img.max()) > 0.05
+    # The same model twice: the nearer copy hides most of the farther one.
+    assert float((both - img).abs().max()) < 0.5 and float(both.max()) > 0.05
     v.remove_model("m (1)")
     with pytest.raises(ValueError):
         v.remove_model("m")

@@ -8,7 +8,10 @@ out, so this module needs no JAX).
   n_valid) <-> the port's `SortedEntries` ((E, 4) int32 entries);
 - `edits_from_jax` / `bits_from_jax`: the JAX buffers' per-splat state (the
   edit SoA, the selection and mask bits, all padded to a multiple of 128)
-  -> the port's buffer tensors at the port's capacity.
+  -> the port's buffer tensors at the port's capacity;
+- `viewer_from_scene`: a whole multi-model scene of the JAX viewer, given
+  as plain data (pods, transforms, visibility, centres, editing state), ->
+  a port `MultiModelViewer` with the same state.
 """
 
 from __future__ import annotations
@@ -16,8 +19,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.transform import ModelTransform
 from .data.compression import Compressions, ShCompression, pod_to_tensors
 from .ops.binning import ROW, SortedEntries
+from .viewer.viewer import MultiModelViewer, ViewerModel
 
 
 def pod_from_jax(pod_np: dict, comp: Compressions, device="cpu", n: int | None = None) -> dict:
@@ -32,7 +37,7 @@ def pod_from_jax(pod_np: dict, comp: Compressions, device="cpu", n: int | None =
             v = v.reshape(v.shape[:-2] + (-1,))
         if n is not None:
             v = v[..., :n]
-        words[k] = v
+        words[k] = np.array(v)  # a writable copy: device arrays read back read-only
     expected = {"pos", "color0", "cov3d"}
     if comp.sh != ShCompression.REMOVE:
         expected.add("sh")
@@ -85,3 +90,37 @@ def edits_from_jax(flags, rgb, params, capacity: int, device="cpu") -> tuple:
 def bits_from_jax(bits, capacity: int, device="cpu") -> torch.Tensor:
     """JAX selection or mask bits (N_pad,) -> the port's (capacity,) uint8."""
     return torch.from_numpy(_cut(np.asarray(bits).astype(np.uint8), capacity, "bits")).to(device)
+
+
+def viewer_from_scene(models: list, width: int, height: int, comp: Compressions,
+                      device="cuda", **viewer_kw) -> MultiModelViewer:
+    """A port viewer holding a JAX viewer's scene. `models`: one dict per
+    model, in the JAX viewer's insertion order, with
+      name, pod (the JAX rows or flat pod as numpy arrays), count (loaded
+      splats), pos / rot / scale (the `ModelTransform` fields), visible,
+      center, and optionally edits (flags, rgb, params), selection, mask
+      (the JAX buffers' padded arrays).
+    The pod words are taken as they are (no re-pack), so both viewers render
+    the same compressed splats. `viewer_kw` goes to `MultiModelViewer`
+    (tile, max_dup, background, fused)."""
+    v = MultiModelViewer(width, height, comp=comp, device=device, **viewer_kw)
+    for spec in models:
+        n = int(spec["count"])
+        m = ViewerModel(v.dedup_key(spec["name"]), n, comp, v.device)
+        b = m.buffers
+        pod = pod_from_jax(spec["pod"], comp, v.device, n=b.capacity)
+        for k, t in pod.items():
+            b.pod[k].copy_(t)
+        b.loaded = n
+        m.transform = ModelTransform(*(np.asarray(spec[f], np.float32)
+                                       for f in ("pos", "rot", "scale")))
+        m.visible = bool(spec.get("visible", True))
+        m.center = np.asarray(spec["center"], np.float32)
+        if spec.get("edits") is not None:
+            b.set_edits(*edits_from_jax(*spec["edits"], b.capacity, v.device))
+        if spec.get("selection") is not None:
+            b.set_selection(bits_from_jax(spec["selection"], b.capacity, v.device))
+        if spec.get("mask") is not None:
+            b.set_mask(bits_from_jax(spec["mask"], b.capacity, v.device))
+        v.models[m.file_name] = m
+    return v

@@ -24,14 +24,19 @@ def quat_rot_components(q: torch.Tensor) -> tuple:
 
     The norm accumulates the squares as fused multiply-adds (exact products
     in f64, one f32 rounding per step), the order in which the reference's
-    `norm` rounds, and takes a correctly rounded square root (via f64; the
-    f32 CPU sqrt may be an ulp off), so the packed covariances match the
-    reference byte for byte."""
+    `norm` rounds, and takes a correctly rounded square root, so the packed
+    covariances match the reference byte for byte. The root is numpy's f64
+    `sqrt` (the hardware instruction, correctly rounded): torch's CPU `sqrt`
+    goes through a vector math library that is not, neither in f32 (an ulp
+    off on ~0.6% of inputs) nor in f64, where the first call of a process
+    under load was seen to split the array between two threads and return
+    the second half at about f32 accuracy."""
     d = q.to(torch.float64)
     acc = (d[..., 0] * d[..., 0]).to(torch.float32)
     for i in range(1, q.shape[-1]):
         acc = (d[..., i] * d[..., i] + acc.to(torch.float64)).to(torch.float32)
-    q = q / torch.sqrt(acc.to(torch.float64)).to(torch.float32)[..., None]
+    root = np.sqrt(acc.cpu().numpy().astype(np.float64)).astype(np.float32)
+    q = q / torch.from_numpy(root).to(q.device)[..., None]
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     return (
         (1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)),

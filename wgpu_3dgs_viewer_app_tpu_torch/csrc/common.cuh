@@ -36,3 +36,11 @@ __device__ __forceinline__ float gs_f16_bits_to_f32(uint32_t h) {
 __device__ __forceinline__ float gs_u8_unit(uint32_t w, int shift) {
   return (float)((w >> shift) & 0xFFu) * (1.0f / 255.0f);
 }
+
+namespace gs {
+
+__device__ __forceinline__ float clampf(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+
+}  // namespace gs

@@ -6,8 +6,10 @@
 // with K4), SH (degree 0-3) to RGB, the gates (mask bits, per-splat edit,
 // scene-wide selection edit, highlight; splat.cuh), opacity-aware extent,
 // cull, then enumerate up to D tiles centre-out with the exact ellipse-tile
-// test and pack key/p1/p2/p3. Slot d of splat s is written at entry
-// s * D + d as one 16-byte store; dead slots are (SENTINEL, 0, 0, 0).
+// test and pack key/p1/p2/p3 (enumerate.cuh, shared with K5; the key carries
+// the model rank of a merged multi-model frame). Slot d of splat s is
+// written at entry s * D + d as one 16-byte store; dead slots are
+// (SENTINEL, 0, 0, 0).
 //
 // The arithmetic repeats, expression for expression, the plain version
 // (ops/preprocess.py + ops/binning.py); the library is built with
@@ -29,6 +31,7 @@
 // staging of the strided 16-byte entry stores is left for a later pass.
 #include <cstring>
 
+#include "enumerate.cuh"
 #include "splat.cuh"
 
 using namespace gs;
@@ -121,68 +124,11 @@ fused_frontend_kernel(const FrameParams fp, const IntParams ip,
   const bool valid = splat_valid(fp, sg, radius, alpha, gate_ok);
   if (!valid) alpha = 0.0f;
 
-  // --- per-splat entry words ---
-  const float ld = logf(fmaxf(sg.depth, 1e-6f));
-  const uint32_t dkey = (uint32_t)(int)clampf((ld - (-3.0f)) * fp.depth_scale, 0.0f, fp.depth_qmax);
-  const uint32_t a8 = (uint32_t)(int)clampf(alpha * 255.0f + 0.5f, 0.0f, 252.0f);
-  const uint32_t key_lo = (dkey << 8) | a8;
-  const uint32_t r8 = (uint32_t)(int)clampf(col[0] * 255.0f + 0.5f, 0.0f, 255.0f);
-  const uint32_t g8 = (uint32_t)(int)clampf(col[1] * 255.0f + 0.5f, 0.0f, 255.0f);
-  const uint32_t b8 = (uint32_t)(int)clampf(col[2] * 255.0f + 0.5f, 0.0f, 255.0f);
-  const uint32_t p2 = gs_f32_to_f16_bits(ca) | (gs_f32_to_f16_bits(cb) << 16);
-  const uint32_t p3 = gs_f32_to_f16_bits(cc) | (r8 << 16) | (g8 << 24);
-
-  // --- tight cull from the packed (f16-rounded) conic ---
-  const float a = gs_f16_bits_to_f32(p2 & 0xFFFFu);
-  const float bq = gs_f16_bits_to_f32(p2 >> 16);
-  const float c = gs_f16_bits_to_f32(p3 & 0xFFFFu);
-  const float r_signed = valid ? radius : -1.0f;
-  const float cdet = fmaxf(a * c - bq * bq, 1e-20f);
-  const float half = 0.5f * (a + c);
-  const float lam_min = fmaxf(half - sqrtf(fmaxf(half * half - cdet, 0.0f)), 1e-12f);
-  const float r = fmaxf(r_signed, 0.0f);
-  const float cut2 = r_signed > 0.0f ? r * r * lam_min : -1.0f;
-  const float sc = sqrtf(fmaxf(cut2, 0.0f) / cdet);
-  const float rx = fminf(sqrtf(fmaxf(c, 0.0f)) * sc, r);
-  const float ry = fminf(sqrtf(fmaxf(a, 0.0f)) * sc, r);
-  const float inv_a = 1.0f / fmaxf(a, 1e-12f);
-  const float inv_c = 1.0f / fmaxf(c, 1e-12f);
-
-  const float tile = (float)ip.tile;
-  const float hx = (float)(ip.tiles_x - 1), hy = (float)(ip.tiles_y - 1);
-  const int tx0 = (int)clampf(floorf((px - rx) / tile), 0.0f, hx);
-  const int tx1 = (int)clampf(floorf((px + rx) / tile), 0.0f, hx);
-  const int ty0 = (int)clampf(floorf((py - ry) / tile), 0.0f, hy);
-  const int ty1 = (int)clampf(floorf((py + ry) / tile), 0.0f, hy);
-  const int rw = tx1 - tx0 + 1, rh = ty1 - ty0 + 1;
-  const int n_touched = rw * rh;
-
-  uint4* dst = out + s * ip.max_dup;
-  for (int dd = 0; dd < ip.max_dup; ++dd) {
-    // Centre-out candidate cell dd of the tile rect.
-    const int mm = dd % rw, kk = dd / rw;
-    const int etx = tx0 + ((rw - 1) >> 1) + ((mm + 1) >> 1) * ((mm & 1) ? 1 : -1);
-    const int ety = ty0 + ((rh - 1) >> 1) + ((kk + 1) >> 1) * ((kk & 1) ? 1 : -1);
-    const float dx0 = (float)etx * tile - px, dx1 = dx0 + tile;
-    const float dy0 = (float)ety * tile - py, dy1 = dy0 + tile;
-    const bool inside = dx0 <= 0.0f && dx1 >= 0.0f && dy0 <= 0.0f && dy1 >= 0.0f;
-    auto qf = [&](float ex, float ey) { return (a * ex + 2.0f * bq * ey) * ex + c * ey * ey; };
-    const float yv0 = fminf(fmaxf((-bq) * dx0 * inv_c, dy0), dy1);
-    const float yv1 = fminf(fmaxf((-bq) * dx1 * inv_c, dy0), dy1);
-    const float xh0 = fminf(fmaxf((-bq) * dy0 * inv_a, dx0), dx1);
-    const float xh1 = fminf(fmaxf((-bq) * dy1 * inv_a, dx0), dx1);
-    float qmin = fminf(fminf(qf(dx0, yv0), qf(dx1, yv1)), fminf(qf(xh0, dy0), qf(xh1, dy1)));
-    if (inside) qmin = 0.0f;
-    const bool live = dd < n_touched && qmin <= cut2;
-    uint4 e = make_uint4(GS_SENTINEL, 0u, 0u, 0u);
-    if (live) {
-      const uint32_t tile_id = (uint32_t)(ety * ip.tiles_x + etx);
-      const uint32_t mxq = (uint32_t)(int)clampf((px - (float)etx * tile + 128.0f) * 16.0f + 0.5f, 0.0f, 4095.0f);
-      const uint32_t myq = (uint32_t)(int)clampf((py - (float)ety * tile + 128.0f) * 16.0f + 0.5f, 0.0f, 4095.0f);
-      e = make_uint4((tile_id << ip.tile_shift) | key_lo, mxq | (myq << 12) | (b8 << 24), p2, p3);
-    }
-    dst[dd] = e;
-  }
+  // --- enumerate up to max_dup tiles centre-out and pack (enumerate.cuh) ---
+  const EnumParams ep{ip.tile, ip.tiles_x, ip.tiles_y, ip.max_dup, ip.tile_shift,
+                      ip.rank_shift, ip.model_rank, fp.depth_scale, fp.depth_qmax};
+  enumerate_pack(ep, px, py, sg.depth, radius, ca, cb, cc, col[0], col[1], col[2], alpha, valid,
+                 out + s * ip.max_dup);
 }
 
 template <int SH, int COV>

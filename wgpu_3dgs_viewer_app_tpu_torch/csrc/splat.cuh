@@ -33,8 +33,9 @@ struct IntParams {
   int n, sh_comp, cov_comp, sh_degree, no_sh0, display_mode;
   int tile, tiles_x, tiles_y, max_dup, tile_shift;
   int gates, sel_flags;
+  int rank_shift, model_rank;  // key bits below the model rank; the rank (K1)
 };
-constexpr int kIntParams = 13;
+constexpr int kIntParams = 15;
 static_assert(sizeof(IntParams) == kIntParams * sizeof(int), "int params");
 
 enum { SH_SINGLE = 0, SH_HALF = 1, SH_NORM8 = 2, SH_REMOVE = 3 };
@@ -52,10 +53,6 @@ struct Gates {
   const float* ergb;        // (N, 3) row-major
   const float* eparams;     // (N, 4) row-major: contrast, exposure, gamma, alpha
 };
-
-__device__ __forceinline__ float clampf(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
-}
 
 struct SplatGeometry {
   float wx, wy, wz;          // world position

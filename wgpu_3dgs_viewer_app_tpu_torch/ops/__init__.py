@@ -1,4 +1,5 @@
-from .binning import SENTINEL, SortedEntries, TileConfig, enumerate_entries_from_pre
+from .binning import (SENTINEL, SortedEntries, TileConfig, build_sorted_entries,
+                      enumerate_entries_from_pre, enumerate_entries_from_pre_plain)
 from .composite import composite_tiles_plain_v2, composite_tiles_v2, over_background
 from .fused import (build_sorted_entries_fused, enumerate_entries_fused, enumerate_entries_plain,
                     preprocess_geometry_fused, preprocess_geometry_plain)
@@ -9,7 +10,9 @@ __all__ = [
     "SENTINEL",
     "SortedEntries",
     "TileConfig",
+    "build_sorted_entries",
     "enumerate_entries_from_pre",
+    "enumerate_entries_from_pre_plain",
     "composite_tiles_plain_v2",
     "composite_tiles_v2",
     "over_background",

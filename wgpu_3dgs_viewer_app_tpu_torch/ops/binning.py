@@ -1,13 +1,17 @@
-"""Tile binning: per-splat tile enumeration and entry packing (plain torch),
-the sorted-entry container and the per-tile ranges.
+"""Tile binning: per-splat tile enumeration and entry packing from a
+`PreprocessOut` (kernel K5 on the card, plain torch on the CPU), the
+sorted-entry container and the per-tile ranges.
 
 Each live splat is duplicated into up to `max_dup` screen tiles, visited
 centre-out, and each (splat, tile) pair becomes one 16-byte entry of four
 u32 words, bit-identical to `wgpu_3dgs_viewer_app_tpu.ops.binning`:
 
-  key = tile | log-depth | alpha8   (one ascending sort gives every tile a
-        contiguous front-to-back run; SENTINEL marks dead slots. Merged
-        multi-model frames add a model-rank field above the depth, ROADMAP)
+  key = tile | model_rank | log-depth | alpha8   (one ascending sort gives
+        every tile a contiguous front-to-back run; SENTINEL marks dead
+        slots. The rank field has `TileConfig.model_bits` bits, taken from
+        the depth field: 0 on a single-model frame; on a merged multi-model
+        frame the nearest model has rank 0, so a tile's run is grouped by
+        model, nearest first, and depth-sorted within each model)
   p1  = b8 << 24 | mean_y u12 << 12 | mean_x u12  (tile-relative means,
         1/16-px fixed point, biased +128 px)
   p2  = conic_a f16 | conic_b f16 << 16
@@ -16,6 +20,12 @@ u32 words, bit-identical to `wgpu_3dgs_viewer_app_tpu.ops.binning`:
 Entries live in one (E, 4) int32 tensor, so the compositor reads an entry
 with one 16-byte load. The plain path computes words as int64 values in
 [0, 2**32) and stores their int32 bit patterns.
+
+`enumerate_entries_from_pre` is the counterpart of the JAX function of the
+same name (the staged front-end's second stage; its Pallas kernel is
+`_enum_pack_kernel`): on CUDA planes it launches kernel K5
+(`csrc/enum_pack.cu`), on CPU planes it runs `enumerate_entries_from_pre_plain`.
+`build_sorted_entries` adds the entry sort (K2).
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import dataclasses
 import torch
 
 from ..core.f16 import as_i32, f16_bits_to_f32, f32_to_f16_bits, pack2xf16, u32, unpack2xf16
+from . import kernels
 from .preprocess import PreprocessOut
 
 # Peak splat opacity. The key's alpha byte is clamped to ALPHA_U8_MAX, so
@@ -52,12 +63,16 @@ class TileConfig:
     """Screen and tiling geometry.
 
     `max_dup` caps the tile entries per splat (D); a splat whose culled
-    tile rect exceeds D loses its farthest cells (centre-out order)."""
+    tile rect exceeds D loses its farthest cells (centre-out order).
+    `model_bits` > 0 puts a model-rank field of that many bits between the
+    tile and the depth in the key (merged multi-model frames); every bit
+    comes out of the depth field."""
 
     width: int
     height: int
     tile: int = 16
     max_dup: int = 8
+    model_bits: int = 0
 
     ALPHA_BITS = 8
     # Depth-key resolution below which the log-depth quantisation visibly
@@ -83,15 +98,20 @@ class TileConfig:
 
     @property
     def v2_depth_bits(self) -> int:
-        bits = 32 - self.tile_bits - self.ALPHA_BITS
+        bits = 32 - self.tile_bits - self.ALPHA_BITS - self.model_bits
         if bits < self.MIN_DEPTH_BITS:
             raise ValueError(f"key layout leaves {bits} depth bits (tile_bits="
-                             f"{self.tile_bits}); need >= {self.MIN_DEPTH_BITS}")
+                             f"{self.tile_bits}, model_bits={self.model_bits}); need >= "
+                             f"{self.MIN_DEPTH_BITS}: reduce the model or tile count")
         return bits
 
     @property
-    def _tile_shift(self) -> int:
+    def _rank_shift(self) -> int:
         return self.v2_depth_bits + self.ALPHA_BITS
+
+    @property
+    def _tile_shift(self) -> int:
+        return self._rank_shift + self.model_bits
 
     @property
     def depth_scale(self) -> float:
@@ -110,13 +130,22 @@ class SortedEntries:
     n_valid: int               # live entries
 
 
-def depth_alpha_key_lo(depth, alpha, cfg: TileConfig) -> torch.Tensor:
-    """Low key bits: log-depth | alpha u8 (int64)."""
+def check_model_rank(cfg: TileConfig, model_rank: int) -> int:
+    """The rank as an int that fits the key's rank field (0 without one)."""
+    rank = int(model_rank)
+    if not 0 <= rank < max(1 << cfg.model_bits, 1):
+        raise ValueError(f"model_rank {rank} does not fit model_bits={cfg.model_bits}")
+    return rank
+
+
+def depth_alpha_key_lo(depth, alpha, cfg: TileConfig, model_rank: int = 0) -> torch.Tensor:
+    """Low key bits: model_rank | log-depth | alpha u8 (int64). The rank
+    (nearest model = 0) must be 0 unless `cfg.model_bits` > 0."""
     qmax = float(2 ** cfg.v2_depth_bits - 1)
     ld = torch.log(torch.clamp_min(depth, 1e-6))
     dkey = torch.clamp((ld - DEPTH_LN_MIN) * cfg.depth_scale, 0.0, qmax).to(torch.int64)
     alpha_u8 = torch.clamp(alpha * 255.0 + 0.5, 0.0, float(ALPHA_U8_MAX)).to(torch.int64)
-    return (dkey << cfg.ALPHA_BITS) | alpha_u8
+    return (check_model_rank(cfg, model_rank) << cfg._rank_shift) | (dkey << cfg.ALPHA_BITS) | alpha_u8
 
 
 def _tight_cull_params(r_signed, p2s, p3s):
@@ -217,11 +246,13 @@ def _u8(c):
     return torch.clamp(c * 255.0 + 0.5, 0, 255).to(torch.int64)
 
 
-def enumerate_entries_from_pre(pre: PreprocessOut, cfg: TileConfig) -> torch.Tensor:
-    """Duplicate + pack: (N * max_dup, 4) int32 entries, slot d of splat s
-    at row s * max_dup + d; dead slots are (SENTINEL, 0, 0, 0)."""
+def enumerate_entries_from_pre_plain(pre: PreprocessOut, cfg: TileConfig,
+                                     model_rank: int = 0) -> torch.Tensor:
+    """Plain version of K5. Duplicate + pack: (N * max_dup, 4) int32
+    entries, slot d of splat s at row s * max_dup + d; dead slots are
+    (SENTINEL, 0, 0, 0)."""
     x, y = pre.mean_x, pre.mean_y
-    key_lo = depth_alpha_key_lo(pre.depth, pre.alpha, cfg)
+    key_lo = depth_alpha_key_lo(pre.depth, pre.alpha, cfg, model_rank)
     p1_base = _u8(pre.col_b) << 24
     p2s = pack2xf16(pre.conic_a, pre.conic_b)
     p3s = f32_to_f16_bits(pre.conic_c) | (_u8(pre.col_r) << 16) | (_u8(pre.col_g) << 24)
@@ -237,6 +268,55 @@ def enumerate_entries_from_pre(pre: PreprocessOut, cfg: TileConfig) -> torch.Ten
         cols.append(torch.stack([key, p1, torch.where(live, p2s, zero),
                                  torch.where(live, p3s, zero)], dim=-1))
     return as_i32(torch.stack(cols, dim=1).reshape(-1, 4))
+
+
+# The planes K5 reads, in the argument order of `csrc/enum_pack.cu::gs_enum_pack`.
+_ENUM_PLANES = ("mean_x", "mean_y", "depth", "radius", "conic_a", "conic_b", "conic_c",
+                "col_r", "col_g", "col_b", "alpha")
+
+
+def _enumerate_entries_from_pre_cuda(pre: PreprocessOut, cfg: TileConfig,
+                                     model_rank: int, out=None) -> torch.Tensor:
+    lib = kernels.library()
+    n = pre.mean_x.shape[0]
+    dev = pre.mean_x.device
+    for name in _ENUM_PLANES:
+        kernels.require(getattr(pre, name), name, torch.float32, (n,), dev)
+    kernels.require(pre.valid, "valid", torch.bool, (n,), dev)
+    rank = check_model_rank(cfg, model_rank)
+    if out is None:
+        out = torch.empty((n * cfg.max_dup, 4), dtype=torch.int32, device=dev)
+    else:
+        kernels.require(out, "out", torch.int32, (n * cfg.max_dup, 4), dev)
+    kernels.check(lib.gs_enum_pack(
+        n, cfg.tile, cfg.tiles_x, cfg.tiles_y, cfg.max_dup, cfg._tile_shift, cfg._rank_shift,
+        rank, cfg.depth_scale, float(2 ** cfg.v2_depth_bits - 1),
+        *(kernels.ptr(getattr(pre, name)) for name in _ENUM_PLANES), kernels.ptr(pre.valid),
+        kernels.ptr(out), kernels.stream()), "gs_enum_pack")
+    kernels.LAUNCHES["enum_pack"] += 1
+    return out
+
+
+def enumerate_entries_from_pre(pre: PreprocessOut, cfg: TileConfig, model_rank: int = 0,
+                               out=None) -> torch.Tensor:
+    """PreprocessOut -> (N * max_dup, 4) int32 entries: kernel K5 on CUDA
+    planes, the plain version on CPU planes. `model_rank` keys the merged
+    multi-model frame (needs `cfg.model_bits` > 0; nearest model = 0).
+    `out`: an (N * max_dup, 4) int32 tensor (or a row slice of a larger
+    one) to write into."""
+    if pre.mean_x.device.type == "cpu":
+        ent = enumerate_entries_from_pre_plain(pre, cfg, model_rank)
+        return ent if out is None else out.copy_(ent)
+    return _enumerate_entries_from_pre_cuda(pre, cfg, model_rank, out)
+
+
+def build_sorted_entries(pre: PreprocessOut, cfg: TileConfig,
+                         model_rank: int = 0) -> SortedEntries:
+    """PreprocessOut -> SortedEntries: the enumeration (K5) then the entry
+    sort (K2), the second half of the staged front-end."""
+    from .sort import sort_entries
+
+    return sort_entries(enumerate_entries_from_pre(pre, cfg, model_rank), cfg)
 
 
 def tile_edges_plain(keys: torch.Tensor, cfg: TileConfig) -> torch.Tensor:

@@ -3,10 +3,10 @@
 - `enumerate_entries_fused` is the counterpart of
   `wgpu_3dgs_viewer_app_tpu.ops.fused.enumerate_entries_fused`. On a CUDA pod
   it launches kernel K1 (`csrc/fused.cu`): one pass over the pod doing what
-  `preprocess` + `enumerate_entries_from_pre` do, gates included. On a CPU
-  pod it runs that plain version, `enumerate_entries_plain`. Either way the
-  result is (N * max_dup, 4) int32 entries, slot d of splat s at row
-  s * max_dup + d.
+  `preprocess` + `enumerate_entries_from_pre` do, gates and model rank
+  included. On a CPU pod it runs that plain version,
+  `enumerate_entries_plain`. Either way the result is (N * max_dup, 4) int32
+  entries, slot d of splat s at row s * max_dup + d.
 - `preprocess_geometry_fused` is the counterpart of the JAX function of the
   same name: the degree-0 preprocess the selection and hit queries read. On
   a CUDA pod it launches kernel K4 (`csrc/geometry.cu`); on a CPU pod it
@@ -26,7 +26,8 @@ import torch
 
 from ..data.compression import Compressions, Cov3dCompression, ShCompression
 from . import kernels
-from .binning import SortedEntries, TileConfig, enumerate_entries_from_pre
+from .binning import (SortedEntries, TileConfig, check_model_rank,
+                      enumerate_entries_from_pre_plain)
 from .preprocess import (PreprocessOut, frame_scalars, highlight_scalars, preprocess,
                          selection_edit_scalars)
 from .sort import sort_entries
@@ -37,7 +38,7 @@ _SH_ROWS = {ShCompression.SINGLE: (45, torch.float32), ShCompression.HALF: (23, 
             ShCompression.NORM8: (12, torch.int32)}
 # Gate bits of `csrc/splat.cuh::IntParams::gates`.
 GATE_MASK, GATE_EDIT, GATE_SEL_EDIT, GATE_HIGHLIGHT = 1, 2, 4, 8
-_FRAME_FLOATS, _INT_PARAMS = 55, 13
+_FRAME_FLOATS, _INT_PARAMS = 55, 15
 
 
 def _frame_param_array(fs: dict, cfg, scene_consts=(0.0,) * 11) -> list:
@@ -51,6 +52,20 @@ def _frame_param_array(fs: dict, cfg, scene_consts=(0.0,) * 11) -> list:
             + list(fs["cam"]) + [fs["z_near"], fs["z_far"]] + depth + list(scene_consts))
     assert len(vals) == _FRAME_FLOATS, len(vals)
     return vals
+
+
+def _int_param_array(n: int, comp: Compressions, display_mode: int, gate_code: int,
+                     sh_degree: int = 0, no_sh0: bool = False, cfg=None, sel_flags: int = 0,
+                     model_rank: int = 0):
+    """The 15 int scalars in `csrc/splat.cuh::IntParams` order; the tiling
+    and key layout (K1 only) from `cfg`."""
+    tiling = ([cfg.tile, cfg.tiles_x, cfg.tiles_y, cfg.max_dup, cfg._tile_shift]
+              if cfg is not None else [0] * 5)
+    rank = [cfg._rank_shift, check_model_rank(cfg, model_rank)] if cfg is not None else [0, 0]
+    vals = ([n, _SH_CODE[comp.sh], int(comp.cov3d == Cov3dCompression.HALF), sh_degree,
+             int(no_sh0), display_mode] + tiling + [gate_code, sel_flags] + rank)
+    assert len(vals) == _INT_PARAMS, len(vals)
+    return (ctypes.c_int * _INT_PARAMS)(*vals)
 
 
 def _i32(v: int) -> int:
@@ -107,16 +122,16 @@ def _require_pod(pod: dict, comp: Compressions, n: int, sh: bool) -> None:
 
 def enumerate_entries_plain(pod: dict, comp: Compressions, cfg: TileConfig, view, proj, model,
                             sh_degree: int = 3, no_sh0: bool = False, size: float = 1.0,
-                            display_mode: int = 0, **gates) -> torch.Tensor:
+                            display_mode: int = 0, model_rank: int = 0, **gates) -> torch.Tensor:
     """Plain version of K1: preprocess (gates included), then enumerate and
-    pack."""
+    pack (plain too, whatever the device)."""
     pre = preprocess(pod, comp, view, proj, model, cfg.width, cfg.height, sh_degree=sh_degree,
                      no_sh0=no_sh0, size=size, display_mode=display_mode, **gates)
-    return enumerate_entries_from_pre(pre, cfg)
+    return enumerate_entries_from_pre_plain(pre, cfg, model_rank)
 
 
 def _enumerate_entries_cuda(pod, comp, cfg, view, proj, model, sh_degree, no_sh0, size,
-                            display_mode, gates: dict) -> torch.Tensor:
+                            display_mode, model_rank, gates: dict, out=None) -> torch.Tensor:
     lib = kernels.library()
     n = pod["color0"].shape[-1]
     _require_pod(pod, comp, n, sh=True)
@@ -125,11 +140,12 @@ def _enumerate_entries_cuda(pod, comp, cfg, view, proj, model, sh_degree, no_sh0
     code, sel_flags, consts, gt = _cuda_gates(n, pod["color0"].device, **gates)
     fs = frame_scalars(view, proj, model, cfg.width, cfg.height, size)
     frame = (ctypes.c_float * _FRAME_FLOATS)(*_frame_param_array(fs, cfg, consts))
-    iparams = (ctypes.c_int * _INT_PARAMS)(
-        n, _SH_CODE[comp.sh], int(comp.cov3d == Cov3dCompression.HALF), sh_degree, int(no_sh0),
-        display_mode, cfg.tile, cfg.tiles_x, cfg.tiles_y, cfg.max_dup, cfg._tile_shift,
-        code, sel_flags)
-    out = torch.empty((n * cfg.max_dup, 4), dtype=torch.int32, device=pod["color0"].device)
+    iparams = _int_param_array(n, comp, display_mode, code, sh_degree, no_sh0, cfg, sel_flags,
+                               model_rank)
+    if out is None:
+        out = torch.empty((n * cfg.max_dup, 4), dtype=torch.int32, device=pod["color0"].device)
+    else:
+        kernels.require(out, "out", torch.int32, (n * cfg.max_dup, 4), pod["color0"].device)
     p = kernels.ptr
     sh = pod.get("sh") if comp.sh != ShCompression.REMOVE else None
     mn, span = (pod["sh_mn"], pod["sh_span"]) if comp.sh == ShCompression.NORM8 else (None, None)
@@ -152,21 +168,28 @@ def enumerate_entries_fused(
     no_sh0: bool = False,
     size: float = 1.0,
     display_mode: int = 0,
+    model_rank: int = 0,
     mask_bits=None,
     edit=None,
     selection_bits=None,
     selection_edit=None,
     highlight_rgba=None,
+    out=None,
 ) -> torch.Tensor:
     """pod -> (N * max_dup, 4) int32 entries: kernel K1 on a CUDA pod, the
     plain version on a CPU pod. `view`, `proj`, `model`: (4, 4) f32 host
-    matrices. Gates as in `preprocess`; only the given ones cost anything."""
+    matrices. `model_rank` keys the merged multi-model frame (needs
+    `cfg.model_bits` > 0; nearest model = 0). Gates as in `preprocess`; only
+    the given ones cost anything. `out`: an (N * max_dup, 4) int32 tensor (or
+    a row slice of a larger one) to write into."""
     gates = dict(mask_bits=mask_bits, edit=edit, selection_bits=selection_bits,
                  selection_edit=selection_edit, highlight_rgba=highlight_rgba)
-    args = (pod, comp, cfg, view, proj, model, sh_degree, no_sh0, size, display_mode)
+    args = (pod, comp, cfg, view, proj, model, sh_degree, no_sh0, size, display_mode,
+            model_rank)
     if pod["color0"].device.type == "cpu":
-        return enumerate_entries_plain(*args, **gates)
-    return _enumerate_entries_cuda(*args, gates)
+        ent = enumerate_entries_plain(*args, **gates)
+        return ent if out is None else out.copy_(ent)
+    return _enumerate_entries_cuda(*args, gates, out)
 
 
 def build_sorted_entries_fused(
@@ -180,11 +203,12 @@ def build_sorted_entries_fused(
     no_sh0: bool = False,
     size: float = 1.0,
     display_mode: int = 0,
+    model_rank: int = 0,
     **gates,
 ) -> SortedEntries:
     """pod -> SortedEntries: the front-end (K1) then the entry sort (K2)."""
     entries = enumerate_entries_fused(pod, comp, cfg, view, proj, model, sh_degree, no_sh0,
-                                      size, display_mode, **gates)
+                                      size, display_mode, model_rank, **gates)
     return sort_entries(entries, cfg)
 
 
@@ -207,9 +231,7 @@ def _geometry_cuda(pod, comp, view, proj, model, width, height, size, display_mo
     code, _, _, gt = _cuda_gates(n, dev, mask_bits=mask_bits, edit=edit)
     fs = frame_scalars(view, proj, model, width, height, size)
     frame = (ctypes.c_float * _FRAME_FLOATS)(*_frame_param_array(fs, None))
-    iparams = (ctypes.c_int * _INT_PARAMS)(
-        n, 0, int(comp.cov3d == Cov3dCompression.HALF), 0, 0, display_mode, 0, 0, 0, 0, 0,
-        code, 0)
+    iparams = _int_param_array(n, comp, display_mode, code)
     planes = torch.empty((11, n), dtype=torch.float32, device=dev)
     valid = torch.empty(n, dtype=torch.bool, device=dev)
     p = kernels.ptr

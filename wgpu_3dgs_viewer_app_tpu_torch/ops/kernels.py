@@ -32,7 +32,7 @@ BUILD_DIR = Path(os.environ.get("GS_TORCH_BUILD_DIR", CSRC.parent / "_build"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--fmad=false"]
 
-LAUNCHES = {"fused": 0, "sort": 0, "composite": 0, "geometry": 0}
+LAUNCHES = {"fused": 0, "sort": 0, "composite": 0, "geometry": 0, "enum_pack": 0}
 # Seconds the last build in this process took (None: no build ran).
 build_seconds = None
 
@@ -41,9 +41,11 @@ _lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "gs_fused_frontend": [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I)] + [_P] * 13,
     "gs_geometry": [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I)] + [_P] * 10,
+    "gs_enum_pack": [_I] * 8 + [_F] * 2 + [_P] * 14,
     "gs_sort_num_blocks": [ctypes.c_longlong],
     "gs_sort_count_live": [_P, ctypes.c_longlong, _P, _P, _P],
     "gs_sort_compact_radix": [_P, ctypes.c_longlong, _P, _P, _P, _I, _P, _P, _P],

@@ -8,6 +8,10 @@ searchsorted of `ops/binning.py`). On CUDA entries it launches kernel K2
 the 16-byte entries, and the tile edges. On CPU entries it runs the plain
 version, `sort_entries_plain`: `torch.sort` of the live keys and a gather.
 Both return the live entries only; tie order is not part of the contract.
+It also takes the role of the reference's `sort_and_range_entries`: the
+merged multi-model frame hands it all models' entries and the config with
+the rank field; the keys sort as whole 32-bit words and the tile edges are
+read at `cfg._tile_shift`, so the rank needs nothing more here.
 """
 
 from __future__ import annotations

@@ -6,9 +6,9 @@ Entry tolerance (front-end vs front-end, slot for slot). Two front-ends fed
 the same pod may round a transcendental (log, exp, rsqrt) an ulp apart, so:
 at least `min_identical` (99.9%) of the slots that are live in either must
 be bit-identical, and every other such slot must be live in both, in the
-same tile, with each quantised field within one step: log-depth and alpha
-byte of the key, u12 means and blue byte of p1, f16 conic bit patterns of
-p2/p3 and the red and green bytes.
+same tile and with the same model rank, with each quantised field within
+one step: log-depth and alpha byte of the key, u12 means and blue byte of
+p1, f16 conic bit patterns of p2/p3 and the red and green bytes.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ def _u32(a) -> np.ndarray:
     return np.ascontiguousarray(a).view(np.uint32).reshape(-1, 4).astype(np.int64)
 
 
-def _fields(e: np.ndarray, tile_shift: int, depth_bits: int) -> list:
+def _fields(e: np.ndarray, depth_bits: int) -> list:
     key, p1, p2, p3 = e.T
     return [
         (key >> 8) & ((1 << depth_bits) - 1),  # log-depth
@@ -42,8 +42,9 @@ def _fields(e: np.ndarray, tile_shift: int, depth_bits: int) -> list:
 
 def compare_entries(a, b, cfg, min_identical: float = 0.999) -> dict:
     """Check two (N * D, 4) entry arrays slot for slot (tolerance above).
-    Returns stats; raises AssertionError when out of tolerance. The model
-    field must be 0 (single-model frames)."""
+    Returns stats; raises AssertionError when out of tolerance. `cfg` is the
+    config both were made under (the merged one for ranked entries): tile
+    and model rank are compared together, as the key bits above the depth."""
     ea, eb = _u32(a), _u32(b)
     _require(ea.shape == eb.shape, f"shapes differ: {ea.shape} vs {eb.shape}")
     live_a, live_b = ea[:, 0] != SENTINEL, eb[:, 0] != SENTINEL
@@ -54,10 +55,10 @@ def compare_entries(a, b, cfg, min_identical: float = 0.999) -> dict:
     ident = 1.0 - float(diff.sum()) / max(n_either, 1)
     da, db = ea[diff], eb[diff]
     both = (da[:, 0] != SENTINEL) & (db[:, 0] != SENTINEL)
-    near = both & ((da[:, 0] >> cfg._tile_shift) == (db[:, 0] >> cfg._tile_shift))
+    rank_shift = cfg.v2_depth_bits + 8
+    near = both & ((da[:, 0] >> rank_shift) == (db[:, 0] >> rank_shift))
     max_step = 0
-    for fa, fb in zip(_fields(da, cfg._tile_shift, cfg.v2_depth_bits),
-                      _fields(db, cfg._tile_shift, cfg.v2_depth_bits)):
+    for fa, fb in zip(_fields(da, cfg.v2_depth_bits), _fields(db, cfg.v2_depth_bits)):
         step = np.abs(fa - fb)
         near &= step <= 1
         if step.size:

@@ -1,4 +1,4 @@
 from .buffers import GaussianBuffers
-from .viewer import MultiModelViewer, Viewer, ViewerModel
+from .viewer import MultiModelViewer, Viewer, ViewerModel, render_frame
 
-__all__ = ["GaussianBuffers", "MultiModelViewer", "Viewer", "ViewerModel"]
+__all__ = ["GaussianBuffers", "MultiModelViewer", "Viewer", "ViewerModel", "render_frame"]

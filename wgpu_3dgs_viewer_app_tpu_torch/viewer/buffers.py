@@ -113,6 +113,15 @@ class GaussianBuffers:
         self.edit_rgb = torch.where(sel[:, None], rgb, self.edit_rgb)
         self.edit_params = torch.where(sel[:, None], params, self.edit_params)
 
+    def adopt_edit_state(self, other: "GaussianBuffers") -> None:
+        """Take over another buffer's edit SoA, selection and mask (same
+        capacity and device; None stays None)."""
+        if other.capacity != self.capacity or other.device != self.device:
+            raise ValueError("edit state moves only between buffers of one capacity and device")
+        self.edit_flags, self.edit_rgb, self.edit_params = (other.edit_flags, other.edit_rgb,
+                                                            other.edit_params)
+        self.selection, self.mask = other.selection, other.mask
+
     # --- downloads (device -> host, for export and queries) -------------------
 
     def download_edits(self):

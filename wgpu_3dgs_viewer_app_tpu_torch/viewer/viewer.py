@@ -1,18 +1,27 @@
 """Single- and multi-model viewer, the counterpart of
 `wgpu_3dgs_viewer_app_tpu.viewer.viewer`.
 
-One model's frame runs the kernel path: front-end K1 -> entry sort K2 ->
-compositor K3 on a CUDA device, their plain versions on the CPU. The
-editing state (mask, per-splat edits, the scene-wide selection edit and
-highlight) rides K1's gating inputs; only the gates a model's buffers hold
-are passed, so a scene never edited renders through the ungated front-end.
+A frame is front-end -> entry sort K2 -> compositor K3 on a CUDA device,
+their plain versions on the CPU. The front-end has two routes, picked by the
+viewer's `fused` switch (the counterpart of the reference's `use_pallas`):
+fused, kernel K1 straight from the pod; or staged, the plain `preprocess`
+then the enumerate-and-pack kernel K5 (`render_frame` is that pipeline for
+one model). The editing state (mask, per-splat edits, the scene-wide
+selection edit and highlight) rides the front-end's gating inputs; only the
+gates a model's buffers hold are passed, so a scene never edited renders
+ungated.
+
 Models are ordered back-to-front by the camera distance of their centres.
-A frame with more than one visible model needs the merged multi-model pass,
-which waits for a later slice (ROADMAP queue A).
+A frame with several visible models is one merged pass: every model's
+entries carry its rank in the sort key (nearest = 0, `TileConfig.model_bits`
+wide), written into one entry buffer, so one sort and one composite equal
+the per-model frames blended back to front (the over operator is
+associative).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -23,10 +32,24 @@ from ..core.edit import GaussianEditPod, SelectionHighlightPod
 from ..core.transform import GaussianDisplayMode, GaussianTransform, ModelTransform
 from ..data.compression import Compressions
 from ..data.gaussian import Gaussians
-from ..ops.binning import TileConfig
+from ..ops.binning import TileConfig, build_sorted_entries, enumerate_entries_from_pre
 from ..ops.composite import composite_tiles_v2, over_background
-from ..ops.fused import build_sorted_entries_fused
+from ..ops.fused import enumerate_entries_fused
+from ..ops.preprocess import preprocess
+from ..ops.sort import sort_entries
 from .buffers import GaussianBuffers
+
+
+def render_frame(pod: dict, comp: Compressions, cfg: TileConfig, view, proj, model,
+                 size: float = 1.0, sh_degree: int = 3, no_sh0: bool = False,
+                 display_mode: int = 0, **gates) -> torch.Tensor:
+    """One model through the staged pipeline -> (H, W, 4) premultiplied rgba:
+    `preprocess` (plain torch, on the pod's device) -> `build_sorted_entries`
+    (K5, K2) -> `composite_tiles_v2` (K3). `gates` as in `preprocess`."""
+    pre = preprocess(pod, comp, view, proj, model, cfg.width, cfg.height, sh_degree=sh_degree,
+                     no_sh0=no_sh0, size=size, display_mode=display_mode, **gates)
+    flat = display_mode != int(GaussianDisplayMode.SPLAT)
+    return composite_tiles_v2(build_sorted_entries(pre, cfg), cfg, flat_mode=flat)
 
 
 class ViewerModel:
@@ -60,10 +83,14 @@ class MultiModelViewer:
         max_dup: int = 4,
         background=(0.0, 0.0, 0.0),
         device="cuda",
+        # Front-end route: K1 from the pod (True) or the plain preprocess
+        # then K5 (False). Sort and compositor are the same on both.
+        fused: bool = True,
     ):
         self.cfg = TileConfig(width, height, tile=tile, max_dup=max_dup)
         self.comp = comp
         self.device = torch.device(device)
+        self.fused = fused
         self.models: dict[str, ViewerModel] = {}
         self.gaussian_transform = GaussianTransform()
         self.selection_edit: Optional[GaussianEditPod] = None
@@ -83,6 +110,14 @@ class MultiModelViewer:
         self.models[key] = m
         return m
 
+    def add_empty_model(self, key: str, capacity: int) -> ViewerModel:
+        """Streaming slot: allocates `capacity`; `buffers.update_range` fills
+        it (the model is skipped while nothing is loaded)."""
+        key = self.dedup_key(key)
+        m = ViewerModel(key, capacity, self.comp, self.device)
+        self.models[key] = m
+        return m
+
     def dedup_key(self, key: str) -> str:
         """Duplicate names become `name (n)`."""
         if key not in self.models:
@@ -98,12 +133,38 @@ class MultiModelViewer:
             raise ValueError("cannot remove the last model")
         del self.models[key]
 
+    def set_compressions(self, comp: Compressions) -> None:
+        """Switch the compression of a loaded scene: every model's pod is
+        packed again from its host gaussians; edits, selection and mask carry
+        over (they do not depend on the compression). A streamed model with
+        no host copy loses its splats."""
+        if comp == self.comp:
+            return
+        self.comp = comp
+        for m in self.models.values():
+            old = m.buffers
+            buf = GaussianBuffers(old.capacity, comp, self.device)
+            if m.gaussians is not None and m.gaussians.count:
+                buf.upload_all(m.gaussians)
+            buf.adopt_edit_state(old)
+            m.buffers = buf
+
     # --- world state ----------------------------------------------------------
 
     def update_camera(self, camera: CameraTrait) -> None:
         self._view = np.asarray(camera.view(), np.float32)
         self._proj = np.asarray(camera.projection(self.cfg.width / self.cfg.height), np.float32)
         self._cam_pos = np.asarray(camera.pos, np.float32)
+
+    def update_model_transform(self, key: str, transform: ModelTransform) -> None:
+        self.models[key].transform = transform
+
+    def update_gaussian_transform(self, gt: GaussianTransform) -> None:
+        self.gaussian_transform = gt
+
+    def resize(self, width: int, height: int) -> None:
+        """Viewport resize; call `update_camera` again for the new aspect."""
+        self.cfg = TileConfig(width, height, tile=self.cfg.tile, max_dup=self.cfg.max_dup)
 
     def update_selection_edit(self, pod: Optional[GaussianEditPod]) -> None:
         self.selection_edit = pod
@@ -125,19 +186,30 @@ class MultiModelViewer:
 
         return sorted(keys, key=depth, reverse=True)
 
+    def _model_entries(self, key: str, cfg: TileConfig, rank: int, show_unedited: bool,
+                       out=None) -> torch.Tensor:
+        """One model's unsorted entries under `cfg` with model rank `rank`,
+        by the viewer's front-end route; written into `out` when given."""
+        m = self.models[key]
+        gt = self.gaussian_transform
+        kw = dict(sh_degree=gt.sh_deg.degree, no_sh0=gt.no_sh0, size=gt.size,
+                  display_mode=int(gt.display_mode), **self._gating_kwargs(m, show_unedited))
+        if self.fused:
+            return enumerate_entries_fused(m.buffers.pod, self.comp, cfg, self._view, self._proj,
+                                           m.transform.matrix(), model_rank=rank, out=out, **kw)
+        pre = preprocess(m.buffers.pod, self.comp, self._view, self._proj, m.transform.matrix(),
+                         cfg.width, cfg.height, **kw)
+        return enumerate_entries_from_pre(pre, cfg, model_rank=rank, out=out)
+
+    def _composite(self, entries: torch.Tensor, cfg: TileConfig) -> torch.Tensor:
+        flat = self.gaussian_transform.display_mode != GaussianDisplayMode.SPLAT
+        return composite_tiles_v2(sort_entries(entries, cfg), cfg, flat_mode=flat)
+
     def render_model(self, key: str, show_unedited: bool = False) -> torch.Tensor:
         """One model -> (H, W, 4) premultiplied rgba on the viewer's device.
         `show_unedited` drops the edits (per-splat and selection) but keeps
         the mask and the highlight."""
-        m = self.models[key]
-        gt = self.gaussian_transform
-        entries = build_sorted_entries_fused(
-            m.buffers.pod, self.comp, self.cfg, self._view, self._proj, m.transform.matrix(),
-            sh_degree=gt.sh_deg.degree, no_sh0=gt.no_sh0, size=gt.size,
-            display_mode=int(gt.display_mode), **self._gating_kwargs(m, show_unedited),
-        )
-        flat = gt.display_mode != GaussianDisplayMode.SPLAT
-        return composite_tiles_v2(entries, self.cfg, flat_mode=flat)
+        return self._composite(self._model_entries(key, self.cfg, 0, show_unedited), self.cfg)
 
     def _gating_kwargs(self, m: ViewerModel, show_unedited: bool) -> dict:
         """The gates the model's buffers hold, for the front-end (gates never
@@ -167,10 +239,33 @@ class MultiModelViewer:
             bg = torch.as_tensor(self.background, device=self.device)
             return bg.expand(self.cfg.height, self.cfg.width, 3).clone()
         if len(order) > 1:
-            raise NotImplementedError(
-                "frames with several visible models need the merged multi-model pass "
-                "(model rank in the key), which waits for a later slice (ROADMAP queue A)")
+            return self._render_merged(order, show_unedited)
         return over_background(self.render_model(order[0], show_unedited), self.background)
+
+    def merged_config(self, n_models: int) -> TileConfig:
+        """The viewer's tiling with a rank field wide enough for `n_models`."""
+        return dataclasses.replace(self.cfg, model_bits=max(1, (n_models - 1).bit_length()))
+
+    def merged_entries(self, order: list, show_unedited: bool = False) -> tuple:
+        """The unsorted entries of the models in `order` (back to front) in
+        one buffer, and the merged config. Model i of the order gets rank
+        n - 1 - i (nearest = 0); each front-end launch writes its rows of the
+        one buffer, so nothing is concatenated."""
+        n = len(order)
+        cfg_m = self.merged_config(n)
+        rows = [self.models[k].buffers.capacity * cfg_m.max_dup for k in order]
+        entries = torch.empty((sum(rows), 4), dtype=torch.int32, device=self.device)
+        start = 0
+        for i, (key, r) in enumerate(zip(order, rows)):
+            self._model_entries(key, cfg_m, n - 1 - i, show_unedited, out=entries[start:start + r])
+            start += r
+        return entries, cfg_m
+
+    def _render_merged(self, order: list, show_unedited: bool) -> torch.Tensor:
+        """Several models in one pass: one entry buffer, one sort, one
+        composite."""
+        entries, cfg_m = self.merged_entries(order, show_unedited)
+        return over_background(self._composite(entries, cfg_m), self.background)
 
 
 class Viewer(MultiModelViewer):
