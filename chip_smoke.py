@@ -34,7 +34,17 @@ Phases, each printing what it found:
      timed frames each, the launch counts of one frame, merged = per-model
      frames blended back to front, route against route, the rank and depth
      order of the sorted entries, then a hidden model, an order flip, a
-     resize and a change of compression.
+     resize and a change of compression;
+  7. the two compositors off the viewer's frame, on the config-1 scene: the
+     v1 chain (plain preprocess -> `build_tile_lists` (K2) ->
+     `build_entry_planes` -> `composite_tiles` (K6) -> `over_background`)
+     and the row-major v2 frame (K1 -> K2 -> `composite_tiles_v2(
+     transposed=False, mxu=True)`, K7), 2 warm-up and 5 timed frames each
+     with their launch counts, coverage and difference from phase 4's frame;
+     then K6 against its plain version (splat; flat on the BASELINE config-0
+     shapes: 50k splats, 800x600, point mode, SH 0) and K7 against its plain
+     version with the Horner and the quadratic-basis exponent, against K3,
+     and flat on the config-0 shapes.
 
 The line before the last two is the kernels' JSON record (each kernel's
 launches on its path, error against its plain version, times, least time
@@ -71,6 +81,10 @@ KERNELS = {
                  "wgpu_3dgs_viewer_app_tpu/ops/fused.py:693"),
     "enum_pack": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/enum_pack.cu",
                   "wgpu_3dgs_viewer_app_tpu/ops/binning.py:611"),
+    "composite_v1": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/composite_v1.cu",
+                     "wgpu_3dgs_viewer_app_tpu/ops/composite.py:163"),
+    "composite_rows": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/composite_rows.cu",
+                       "wgpu_3dgs_viewer_app_tpu/ops/composite.py:489"),
 }
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes and f32 (non-tensor-core)
@@ -87,6 +101,13 @@ F32_OPS_PER_MS = 67e12 / 1e3
 K1_OPS_SPLAT, K1_OPS_SH, K1_OPS_SLOT, OPS_EDIT = 230, 4, 40, 110
 K4_OPS_SPLAT, K2_OPS_LIVE, K3_OPS_BLEND = 150, 34, 22
 K5_OPS_SPLAT = 60
+# K6 26 per blend (K3's 22 with the natural-log exponent's extra scale, the
+# per-pixel clamp and T folded into the weight); K7 K3's 22 in the Horner
+# form, 24 in the quadratic-basis form (a 6-term dot instead of the Horner
+# nest).
+K6_OPS_BLEND, K7_OPS_BLEND, K7_MXU_OPS_BLEND = 26, 22, 24
+# K6 and K7 end where their plain versions end: they differ by rounding.
+K67_TOL = 1e-4
 
 CONFIG2_SIZE = (1920, 1088)
 CONFIG2_PLACEMENTS = ((-2.0, 0.0), (0.0, 40.0), (2.0, -40.0))  # x offset, y rotation (deg)
@@ -556,7 +577,224 @@ def phase_config1(g, cam, device, smi: str, rec: dict) -> dict:
         f"max_dup 4: {ms:.3f} ms/frame over {frames} frames ({rest:.3f} ms outside the three "
         f"kernels' phase-2 times), peak {peak:.2f} GiB, coverage {coverage:.3f}, launches "
         f"{launches}, viewer set-up {setup:.1f} s [{smi}]")
-    return launches
+    return launches, img
+
+
+def config0_scene():
+    """BASELINE config 0's scene: 50k random splats, camera at (0, 0, -6),
+    drawn at 800x600 in point mode at SH degree 0."""
+    from wgpu_3dgs_viewer_app_tpu_torch.core import CameraOrbitControl
+    from wgpu_3dgs_viewer_app_tpu_torch.data import make_random_scene
+
+    g = make_random_scene(50_000, seed=0, extent=2.0, scale_range=(0.004, 0.02))
+    return g, CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -6))
+
+
+def v1_planes(pod, comp, cfg, cam, sh_degree: int = 3, display_mode: int = 0):
+    """One model's EntryPlanes through the v1 chain's first stages: the
+    plain preprocess, `build_tile_lists` (K2) and `build_entry_planes`."""
+    import numpy as np
+
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import build_entry_planes, build_tile_lists, preprocess
+
+    pre = preprocess(pod, comp, cam.view(), cam.projection(cfg.width / cfg.height),
+                     np.eye(4, dtype=np.float32), cfg.width, cfg.height, sh_degree=sh_degree,
+                     display_mode=display_mode)
+    return build_entry_planes(pre, build_tile_lists(pre, cfg), cfg)
+
+
+def v1_frame(pod, comp, cfg, cam):
+    """The v1 chain on one model: frame() -> (H, W, 3) over black, through
+    `v1_planes` and `composite_tiles` (K6). Phase 7 times it and
+    scripts/profile_port_frame.py profiles it."""
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import composite_tiles, over_background
+
+    def frame():
+        return over_background(composite_tiles(v1_planes(pod, comp, cfg, cam), cfg),
+                               (0.0, 0.0, 0.0))
+
+    return frame
+
+
+def rows_frame(pod, comp, cfg, cam, mxu: bool = True):
+    """The row-major v2 frame on one model: frame() -> (H, W, 3) over black,
+    K1 -> K2 -> `composite_tiles_v2(transposed=False, mxu=mxu)` (K7)."""
+    import numpy as np
+
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import (build_sorted_entries_fused,
+                                                    composite_tiles_v2, over_background)
+
+    view, proj = cam.view(), cam.projection(cfg.width / cfg.height)
+    eye = np.eye(4, dtype=np.float32)
+
+    def frame():
+        se = build_sorted_entries_fused(pod, comp, cfg, view, proj, eye)
+        return over_background(composite_tiles_v2(se, cfg, transposed=False, mxu=mxu),
+                               (0.0, 0.0, 0.0))
+
+    return frame
+
+
+def phase_compositors(g1, cam1, v2_img, device, smi: str, rec: dict) -> dict:
+    """Phase 7: the v1 chain and the row-major v2 frame at config 1, K6 and
+    K7 against their plain versions (and K7 against K3), flat mode on the
+    config-0 shapes. Returns the launch counts of the two timed frames."""
+    import numpy as np
+    import torch
+
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import (
+        N_PLANES, TileConfig, build_entry_planes, build_sorted_entries_fused, build_tile_lists,
+        composite_tiles, composite_tiles_plain, composite_tiles_plain_v2, composite_tiles_v2,
+        preprocess)
+    from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import ROW
+
+    w, h = 1920, 1080
+    comp, pod = pod_tensors(g1, device)
+    cfg = TileConfig(w, h, tile=32, max_dup=4)
+    out = {}
+
+    # The v1 frame at config 1.
+    ms, img, peak, launches = timed_frames(v1_frame(pod, comp, cfg, cam1))
+    for name in ("sort", "composite_v1"):
+        require(launches[name] >= 1, f"kernel {name} never launched on the v1 path: {launches}")
+    require(launches["composite"] == 0 and launches["fused"] == 0, f"v1 path: {launches}")
+    coverage = check_frame(img, "v1 config 1")
+    d = (img - v2_img).abs()
+    out["composite_v1"] = launches
+    rec_v1 = {"config1_v1_frame_ms": ms, "config1_v1_frame_peak_gib": peak,
+              "config1_v1_vs_v2_frame_max": float(d.max()),
+              "config1_v1_vs_v2_frame_mean": float(d.mean())}
+    log(f"phase 7 v1 frame, config 1: plain preprocess -> build_tile_lists (K2) -> "
+        f"build_entry_planes -> composite_tiles (K6): {ms:.3f} ms/frame over 5 frames, peak "
+        f"{peak:.2f} GiB, coverage {coverage:.3f}, launches {launches}; against phase 4's "
+        f"(quantized v2) frame max {float(d.max()):.4e}, mean {float(d.mean()):.4e} (reported, "
+        f"not gated) [{smi}]")
+    del img, d
+
+    # The peak of each stage of that frame, over what is resident before it.
+    view, proj = cam1.view(), cam1.projection(w / h)
+    eye = np.eye(4, dtype=np.float32)
+    stage_gib = {}
+
+    def stage(name, run):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        result = run()
+        torch.cuda.synchronize()
+        stage_gib[name] = ((torch.cuda.max_memory_allocated() - before) / 2**30, before / 2**30)
+        return result
+
+    pre = stage("preprocess", lambda: preprocess(pod, comp, view, proj, eye, w, h))
+    lists = stage("build_tile_lists", lambda: build_tile_lists(pre, cfg))
+    planes = stage("build_entry_planes", lambda: build_entry_planes(pre, lists, cfg))
+    del pre, lists
+    got = stage("composite_tiles", lambda: composite_tiles(planes, cfg))
+    rec_v1["config1_v1_stage_peak_gib"] = {k: v[0] for k, v in stage_gib.items()}
+    log("phase 7 v1 frame memory, each stage's peak above what was resident before it: "
+        + ", ".join(f"{k} +{v[0]:.3f} GiB (over {v[1]:.3f})" for k, v in stage_gib.items()))
+
+    # K6 against its plain version on that frame's EntryPlanes.
+    work = {}
+    err = float((got - composite_tiles_plain(planes, cfg, stats=work)).abs().max())
+    require(err <= K67_TOL, f"K6 max abs {err} > {K67_TOL}")
+    # Bytes: only the rows the tiles read before their exit (as the plain
+    # version counts them), 36 B an entry, not all of EntryPlanes.
+    b_ms, b_by = bound(work["rows"] * ROW * 4 * N_PLANES
+                       + nbytes(planes.row_starts, planes.tile_counts, got),
+                       K6_OPS_BLEND * work["pairs"])
+    rec_v1.update({"max_abs_err": err, "ms": cuda_ms(lambda: composite_tiles(planes, cfg), 20),
+                   "plain_ms": cuda_ms(lambda: composite_tiles_plain(planes, cfg), 1),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                   "entry_planes_rows": planes.ent.shape[1], "rows_read": work["rows"],
+                   "blends": work["pairs"]})
+    log(f"phase 7 K6 v1 compositor, config 1 ({planes.ent.shape[1]} rows of 128 on 9 planes, "
+        f"{work['rows']} read before the tiles' exits): max abs {err:.3e} (<= {K67_TOL}) vs "
+        f"plain; kernel {rec_v1['ms']:.3f} ms, plain {rec_v1['plain_ms']:.3f} ms, "
+        f"{work['pairs']} blends needed, bound {b_ms:.3f} ms ({b_by})")
+    del planes, got
+
+    # K7 on phase 4's sorted entries (K1 -> K2 at config 1): Horner and
+    # quadratic basis against plain, and against K3.
+    se = build_sorted_entries_fused(pod, comp, cfg, view, proj, eye)
+    rows = {}
+    for mxu in (False, True):
+        got = composite_tiles_v2(se, cfg, transposed=False, mxu=mxu)
+        work = {}
+        ref = composite_tiles_plain_v2(se, cfg, stats=work, mxu=mxu)
+        rows[mxu] = (got, float((got - ref).abs().max()), work["pairs"], work["rows"])
+        require(rows[mxu][1] <= K67_TOL, f"K7 (mxu={mxu}) max abs {rows[mxu][1]} > {K67_TOL}")
+    k3_err = float((rows[False][0] - composite_tiles_v2(se, cfg)).abs().max())
+    require(k3_err <= K3_TOL, f"K7 vs K3 max abs {k3_err} > {K3_TOL}")
+    form = float((rows[True][0] - rows[False][0]).abs().max())
+    # Bytes: the 128-entry chunks read before the tiles' exits, 16 B an entry.
+    io = nbytes(se.tile_starts, se.tile_counts, rows[False][0])
+    b_ms, b_by = bound(rows[False][3] * ROW * 16 + io, K7_OPS_BLEND * rows[False][2])
+    bm_ms, _ = bound(rows[True][3] * ROW * 16 + io, K7_MXU_OPS_BLEND * rows[True][2])
+    rec_rows = {
+        "max_abs_err": max(rows[False][1], rows[True][1]),
+        "ms": cuda_ms(lambda: composite_tiles_v2(se, cfg, transposed=False), 20),
+        "plain_ms": cuda_ms(lambda: composite_tiles_plain_v2(se, cfg), 1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "mxu_ms": cuda_ms(lambda: composite_tiles_v2(se, cfg, mxu=True), 20),
+        "mxu_plain_ms": cuda_ms(lambda: composite_tiles_plain_v2(se, cfg, mxu=True), 1),
+        "mxu_bound_ms": bm_ms, "mxu_max_abs_err": rows[True][1], "vs_k3_max": k3_err,
+        "mxu_vs_horner_max": form, "k3_ms": cuda_ms(lambda: composite_tiles_v2(se, cfg), 20)}
+    log(f"phase 7 K7 row-major compositor on phase 4's sorted entries ({se.n_valid} live): "
+        f"Horner max abs {rows[False][1]:.3e}, quadratic basis {rows[True][1]:.3e} (<= "
+        f"{K67_TOL}) vs plain; vs K3 {k3_err:.3e} (<= {K3_TOL:.3e}); quadratic basis vs Horner "
+        f"on the card {form:.3e}; kernel {rec_rows['ms']:.3f} ms (Horner), "
+        f"{rec_rows['mxu_ms']:.3f} ms (mxu), K3 {rec_rows['k3_ms']:.3f} ms in the same run; plain "
+        f"{rec_rows['plain_ms']:.3f} / {rec_rows['mxu_plain_ms']:.3f} ms; {rows[False][2]} blends "
+        f"needed, bound {b_ms:.3f} ms ({b_by}) / {bm_ms:.3f} ms (mxu)")
+    del se, rows
+
+    # The row-major frame at config 1 (the mxu mode's path).
+    ms, img, peak, launches = timed_frames(rows_frame(pod, comp, cfg, cam1))
+    for name in ("fused", "sort", "composite_rows"):
+        require(launches[name] >= 1, f"kernel {name} never launched on the row-major path: "
+                                     f"{launches}")
+    require(launches["composite"] == 0, f"row-major path launched K3: {launches}")
+    coverage = check_frame(img, "row-major config 1")
+    d = (img - v2_img).abs()
+    out["composite_rows"] = launches
+    rec_rows.update({"config1_rows_frame_ms": ms, "config1_rows_frame_peak_gib": peak,
+                     "config1_rows_vs_v2_frame_max": float(d.max()),
+                     "config1_rows_vs_v2_frame_mean": float(d.mean())})
+    log(f"phase 7 row-major frame, config 1: K1 -> K2 -> composite_tiles_v2(transposed=False, "
+        f"mxu=True) (K7): {ms:.3f} ms/frame over 5 frames, peak {peak:.2f} GiB, coverage "
+        f"{coverage:.3f}, launches {launches}; against phase 4's frame (K3, Horner) max "
+        f"{float(d.max()):.4e}, mean {float(d.mean()):.4e} (reported; the kernels are gated "
+        f"above) [{smi}]")
+    del img, d, pod
+
+    # Flat mode on the config-0 shapes: K6 and K7 against plain.
+    g0, cam0 = config0_scene()
+    comp0, pod0 = pod_tensors(g0, device)
+    cfg0 = TileConfig(800, 600, tile=32, max_dup=4)
+    planes0 = v1_planes(pod0, comp0, cfg0, cam0, sh_degree=0, display_mode=2)
+    got = composite_tiles(planes0, cfg0, flat_mode=True)
+    err6 = float((got - composite_tiles_plain(planes0, cfg0, flat_mode=True)).abs().max())
+    cov6 = float((got[..., 3] > 1.0 / 255.0).float().mean())
+    se0 = build_sorted_entries_fused(pod0, comp0, cfg0, cam0.view(), cam0.projection(800 / 600),
+                                     eye, sh_degree=0, display_mode=2)
+    got = composite_tiles_v2(se0, cfg0, flat_mode=True, transposed=False)
+    err7 = float((got - composite_tiles_plain_v2(se0, cfg0, flat_mode=True)).abs().max())
+    require(err6 <= K67_TOL and err7 <= K67_TOL, f"flat config 0: K6 {err6}, K7 {err7}")
+    require(cov6 > 0.01, f"config 0 point frame covers {cov6}")
+    rec_v1["max_abs_err"] = max(rec_v1["max_abs_err"], err6)
+    rec_v1["config0_flat_max_abs_err"] = err6
+    rec_v1["config0_flat_ms"] = cuda_ms(lambda: composite_tiles(planes0, cfg0, flat_mode=True), 20)
+    rec_rows["max_abs_err"] = max(rec_rows["max_abs_err"], err7)
+    rec_rows["config0_flat_max_abs_err"] = err7
+    rec_rows["config0_flat_ms"] = cuda_ms(
+        lambda: composite_tiles_v2(se0, cfg0, flat_mode=True, transposed=False), 20)
+    log(f"phase 7 flat mode, config-0 shapes ({g0.count} splats, 800x600, point, SH 0; "
+        f"{se0.n_valid} live entries, coverage {cov6:.3f}): K6 max abs {err6:.3e}, "
+        f"{rec_v1['config0_flat_ms']:.4f} ms; K7 max abs {err7:.3e}, "
+        f"{rec_rows['config0_flat_ms']:.4f} ms (<= {K67_TOL} vs plain)")
+    rec["composite_v1"], rec["composite_rows"] = rec_v1, rec_rows
+    return out
 
 
 def config3_pods():
@@ -821,8 +1059,8 @@ def phase_config2(models: list, device, smi: str, rec: dict) -> dict:
         kernels.reset_launch_counts()
         frame()
         one = dict(kernels.LAUNCHES)
-        want = {"fused": n_models if fused else 0, "enum_pack": 0 if fused else n_models,
-                "sort": 1, "composite": 1, "geometry": 0}
+        want = {**dict.fromkeys(kernels.LAUNCHES, 0), "sort": 1, "composite": 1,
+                "fused" if fused else "enum_pack": n_models}
         require(one == want, f"config 2 {route}: one frame launched {one}, expected {want}")
         coverage = check_frame(img, f"config 2 {route}", size=CONFIG2_SIZE)
         images[route], out[route] = img, launches
@@ -1046,25 +1284,32 @@ def main() -> int:
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="smoke_", dir=kernels.BUILD_DIR) as work_dir:
         phase_golden(work_dir)
-    launches = phase_config1(g1, cam1, device, smi, rec)
-    del g1
+    launches, v2_img = phase_config1(g1, cam1, device, smi, rec)
     torch.cuda.empty_cache()
     launches["geometry"] = phase_config3(g3, cam3, device, smi, rec)["geometry"]
     del g3
     torch.cuda.empty_cache()
     launches2 = phase_config2(models2, device, smi, rec)
     launches["enum_pack"] = launches2["staged"]["enum_pack"]
+    del models2
+    torch.cuda.empty_cache()
+    launches7 = phase_compositors(g1, cam1, v2_img, device, smi, rec)
+    launches["composite_v1"] = launches7["composite_v1"]["composite_v1"]
+    launches["composite_rows"] = launches7["composite_rows"]["composite_rows"]
 
     out = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]
         require(launches[name] >= 1, f"kernel {name} never launched on its path: {launches}")
         # `launches`: on the path that is the kernel's main one (config 1 for
-        # K1-K3, config 3 for K4, the staged config 2 for K5).
+        # K1-K3, config 3 for K4, the staged config 2 for K5, phase 7's v1
+        # frame for K6 and its row-major frame for K7).
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": launches[name],
                     "launches_config2_fused": launches2["fused"][name],
-                    "launches_config2_staged": launches2["staged"][name], **r})
+                    "launches_config2_staged": launches2["staged"][name],
+                    "launches_v1_frame": launches7["composite_v1"][name],
+                    "launches_rows_frame": launches7["composite_rows"][name], **r})
     require(all(math.isfinite(k["ms"]) and math.isfinite(k["bound_ms"]) for k in out),
             f"non-finite time in {out}")
     print(json.dumps({"kernels": out}))

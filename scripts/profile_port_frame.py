@@ -6,6 +6,8 @@ few frames of a BASELINE cell, device time per kernel and the idle share.
     python3 scripts/profile_port_frame.py --config 3   # 2M splats, select + edit step
     python3 scripts/profile_port_frame.py --config 2 --route fused    # 3 x 1M, merged frame
     python3 scripts/profile_port_frame.py --config 2 --route staged
+    python3 scripts/profile_port_frame.py --config 1 --route v1     # the v1 chain, K6
+    python3 scripts/profile_port_frame.py --config 1 --route rows   # row-major v2, K7
 
 Config 1 is the plain orbit frame; config 3 is the selection-and-editing
 step that `chip_smoke.py` phase 5 times (`chip_smoke.config3_step`: query
@@ -13,7 +15,11 @@ geometry -> select_rect -> set_selection -> selection edit + highlight ->
 Viewer.render); both at 1920x1080. Config 2 is the merged three-model frame
 that phase 6 times (`chip_smoke.config2_frame`) at 1920x1088, on the fused
 front-end route (K1 per model) or the staged one (plain preprocess + K5 per
-model). All at SH 3, norm8 SH + half cov3d, tile 32, max_dup 4. Prints one line
+model). Config 1 also runs on the two routes of `chip_smoke.py` phase 7: the
+v1 chain (plain preprocess -> build_tile_lists -> build_entry_planes ->
+composite_tiles, `chip_smoke.v1_frame`) and the row-major v2 frame (K1 ->
+K2 -> composite_tiles_v2(transposed=False, mxu=True), `chip_smoke.rows_frame`).
+All at SH 3, norm8 SH + half cov3d, tile 32, max_dup 4. Prints one line
 per kernel (ms per frame, share of device time), the device's busy and
 wall time over the profiled frames, and the card's name and power limit.
 Needs a CUDA device.
@@ -37,15 +43,19 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
-    from wgpu_3dgs_viewer_app_tpu_torch.ops import kernels
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import TileConfig, kernels
     from wgpu_3dgs_viewer_app_tpu_torch.viewer import Viewer
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", type=int, choices=(1, 2, 3), default=3)
-    ap.add_argument("--route", choices=("fused", "staged"), default="fused",
-                    help="front-end route of config 2")
+    ap.add_argument("--route", choices=("fused", "staged", "v1", "rows"), default="fused",
+                    help="config 2: front-end route (fused, staged); config 1: v1 or rows for "
+                         "phase 7's frames")
     ap.add_argument("--frames", type=int, default=5)
     args = ap.parse_args()
+    if args.route not in {1: ("fused", "v1", "rows"), 2: ("fused", "staged"), 3: ("fused",)}[
+            args.config]:
+        ap.error(f"--route {args.route} does not apply to --config {args.config}")
     if not torch.cuda.is_available():
         print("profile_port_frame: no CUDA device", file=sys.stderr)
         return 1
@@ -57,6 +67,13 @@ def main() -> int:
         n_splats, what = sum(g.count for g in models), f"config 2 ({args.route} route)"
         step = chip_smoke.config2_frame(chip_smoke.config2_viewer(models, "cuda"),
                                         args.route == "fused")
+    elif args.config == 1 and args.route in ("v1", "rows"):
+        g, cam = chip_smoke.config1_scene()
+        n_splats, what = g.count, f"config 1 ({args.route} route)"
+        comp, pod = chip_smoke.pod_tensors(g, "cuda")
+        cfg = TileConfig(1920, 1080, tile=32, max_dup=4)
+        step = (chip_smoke.v1_frame(pod, comp, cfg, cam) if args.route == "v1"
+                else chip_smoke.rows_frame(pod, comp, cfg, cam))
     else:
         g, cam = chip_smoke.config1_scene() if args.config == 1 else chip_smoke.config3_scene()
         n_splats, what = g.count, f"config {args.config}"

@@ -18,7 +18,7 @@ from wgpu_3dgs_viewer_app_tpu_torch.data import (
 from wgpu_3dgs_viewer_app_tpu_torch.ops import (
     TileConfig, build_sorted_entries_fused, composite_tiles_v2, preprocess)
 from wgpu_3dgs_viewer_app_tpu_torch.ops.composite import (
-    ALPHA_EPS, T_EPS, _decode, composite_tiles_plain_v2)
+    ALPHA_EPS, LOG2E, T_EPS, _decode, composite_tiles_plain_v2)
 from wgpu_3dgs_viewer_app_tpu_torch.ops.rasterize_ref import rasterize_reference
 
 # The reference stops at 128-entry chunks; any other early-exit point
@@ -86,7 +86,9 @@ def test_blend_counter_counts_each_pixels_needed_entries():
         inside = ((x < cfg.width) & (y < cfg.height))[:, None]
         if n == 0:
             continue
-        op, mx, my, a2, b2, c2, *_ = _decode(ent[s:s + n], torch.ones(n, dtype=torch.bool))
+        op, mx, my, ca, cb, cc, *_ = _decode(ent[s:s + n], torch.ones(n, dtype=torch.bool))
+        half = float(np.float32(-0.5) * np.float32(LOG2E))
+        a2, b2, c2 = ca * half, cb * -float(np.float32(LOG2E)), cc * half
         dx = (lx.to(torch.float32) + 0.5)[:, None] - mx
         dy = (ly.to(torch.float32) + 0.5)[:, None] - my
         a = op * torch.exp2(torch.clamp_max((a2 * dx + b2 * dy) * dx + (c2 * dy) * dy, 0.0))

@@ -2,7 +2,9 @@
 on the same CUDA tensors (the front-end K1 ungated and gated, the entry
 sort K2, the compositor K3, the query geometry K4, the enumerate-and-pack
 kernel K5, K1 with a model rank), the wrappers' input checks, and the whole
-slice on the card against the CPU, the merged multi-model frame included.
+slice on the card against the CPU, the merged multi-model frame included;
+the v1 chain's sort (K2 at the v1 key layout) and compositor K6, and the
+row-major compositor K7 (Horner and quadratic-basis exponent).
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -11,6 +13,7 @@ without JAX (from the repo root):
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import math
 import os
 
@@ -26,11 +29,13 @@ from wgpu_3dgs_viewer_app_tpu_torch.data import (
     read_ply)
 from wgpu_3dgs_viewer_app_tpu_torch.core import ModelTransform
 from wgpu_3dgs_viewer_app_tpu_torch.ops import (
-    SENTINEL, PreprocessOut, TileConfig, build_sorted_entries, build_sorted_entries_fused,
+    SENTINEL, PreprocessOut, TileConfig, build_entry_planes, build_sorted_entries,
+    build_sorted_entries_fused, build_tile_lists, composite_tiles, composite_tiles_plain,
     composite_tiles_plain_v2, composite_tiles_v2, enumerate_entries_from_pre,
     enumerate_entries_from_pre_plain, enumerate_entries_fused, enumerate_entries_plain, kernels,
     preprocess, preprocess_geometry_fused, preprocess_geometry_plain, sort_entries,
     sort_entries_plain)
+from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import tile_list_entries
 from wgpu_3dgs_viewer_app_tpu_torch.testing import (compare_entries, compare_preprocess,
                                                     compare_sorted)
 from wgpu_3dgs_viewer_app_tpu_torch.viewer import MultiModelViewer, Viewer
@@ -41,7 +46,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The plain compositor stops at 128-entry chunks, the kernel per 256-entry
 # batch: they differ by at most the remaining transmittance.
 K3_TOL = 1.0 / 255.0 + 1e-5
+# K6 and K7 end where their plain versions end: they differ by rounding.
+K67_TOL = 1e-4
 EYE = np.eye(4, dtype=np.float32)
+
+
+def _only(**counts) -> dict:
+    """The launch counts of a run that launched these kernels only."""
+    return {**dict.fromkeys(kernels.LAUNCHES, 0), **counts}
 
 
 @pytest.fixture
@@ -245,8 +257,7 @@ def test_viewer_on_card_matches_cpu(dev):
         [math.sin(yaw), 0.3, math.cos(yaw)], np.float32))
     kernels.reset_launch_counts()
     got = Viewer(g, 256, 256, max_dup=16, device=dev).render(cam)
-    assert kernels.LAUNCHES == {"fused": 1, "sort": 1, "composite": 1, "geometry": 0,
-                                "enum_pack": 0}
+    assert kernels.LAUNCHES == _only(fused=1, sort=1, composite=1)
     ref = Viewer(g, 256, 256, max_dup=16, device="cpu").render(cam)
     # CPU and card transcendentals may move a depth key by one step, which
     # can reorder near-ties: hold the two to the golden gate.
@@ -277,8 +288,7 @@ def test_gated_viewer_on_card_matches_cpu(dev):
         kernels.reset_launch_counts()
         imgs.append(v.render(cam).cpu())
         if device == dev:
-            assert kernels.LAUNCHES == {"fused": 1, "sort": 1, "composite": 1, "geometry": 0,
-                                "enum_pack": 0}
+            assert kernels.LAUNCHES == _only(fused=1, sort=1, composite=1)
     assert_golden_close(_u8(imgs[0]), _u8(imgs[1]))
 
 
@@ -386,9 +396,87 @@ def test_merged_viewer_on_card_matches_cpu(dev, fused):
     cam = CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -4.5))
     kernels.reset_launch_counts()
     got = views[str(dev)].render(cam)
-    front = {"fused": 3, "enum_pack": 0} if fused else {"fused": 0, "enum_pack": 3}
-    assert kernels.LAUNCHES == {"sort": 1, "composite": 1, "geometry": 0, **front}
+    front = {"fused": 3} if fused else {"enum_pack": 3}
+    assert kernels.LAUNCHES == _only(sort=1, composite=1, **front)
     ref = views["cpu"].render(cam)
     img, gold = (np.clip(x.cpu().numpy() * 255.0, 0, 255).astype(np.uint8).astype(np.int16)
                  for x in (got, ref))
     assert_golden_close(img, gold)
+
+
+def _v1_pre(dev, n=600, w=256, h=192, mode=0, seed=4):
+    comp = ALL_COMPRESSIONS[5]
+    pod = _pod(comp, n, dev, seed=seed, extent=1.0, scale_range=(0.01, 0.06))
+    view, proj = _camera(w, h, pos=(0.2, 0.3, -3.5))
+    return preprocess(pod, comp, view, proj, EYE, w, h, display_mode=mode)
+
+
+@pytest.mark.parametrize("tile,d", [(16, 16), (32, 4)])
+def test_v1_sort_kernel_matches_torch_sort(dev, tile, d):
+    """The v1 slots (tile | f32 depth bits, splat index) through K2 with the
+    edges at cfg.depth_bits vs the plain stable torch.sort: keys bit-equal,
+    splat indices equal on the live prefix (both sorts are stable), equal
+    tile ranges."""
+    cfg = TileConfig(256, 192, tile=tile, max_dup=d)
+    pre = _v1_pre(dev)
+    ent = tile_list_entries(pre, cfg)
+    before = kernels.LAUNCHES["sort"]
+    got = sort_entries(ent, cfg, shift=cfg.depth_bits)
+    assert kernels.LAUNCHES["sort"] == before + 1
+    ref = sort_entries_plain(ent, cfg, shift=cfg.depth_bits)
+    assert got.n_valid == ref.n_valid > 600
+    assert torch.equal(got.entries, ref.entries)
+    assert torch.equal(got.tile_starts, ref.tile_starts)
+    assert torch.equal(got.tile_counts, ref.tile_counts)
+    lists = build_tile_lists(pre, cfg)
+    assert torch.equal(lists.sorted_idx, ref.entries[:, 1])
+
+
+@pytest.mark.parametrize("tile,mode", [(16, 0), (32, 0), (16, 1), (32, 2)])
+def test_composite_v1_kernel_matches_plain(dev, tile, mode):
+    """K6 vs its plain version on the same EntryPlanes, splat and flat."""
+    cfg = TileConfig(256, 192, tile=tile, max_dup=16)
+    pre = _v1_pre(dev, mode=mode)
+    planes = build_entry_planes(pre, build_tile_lists(pre, cfg), cfg)
+    before = kernels.LAUNCHES["composite_v1"]
+    got = composite_tiles(planes, cfg, flat_mode=mode != 0)
+    assert kernels.LAUNCHES["composite_v1"] == before + 1
+    ref = composite_tiles_plain(planes, cfg, flat_mode=mode != 0)
+    assert float(got[..., 3].mean()) > 0.05
+    assert float((got - ref).abs().max()) <= K67_TOL
+
+
+@pytest.mark.parametrize("tile,mode,mxu", [(16, 0, False), (16, 0, True), (32, 0, True),
+                                           (32, 2, False), (16, 1, True)])
+def test_composite_rows_kernel_matches_plain(dev, tile, mode, mxu):
+    """K7 (row-major, the reference's exact chunks) vs its plain version
+    within rounding, and vs K3 within the early-exit difference."""
+    comp = ALL_COMPRESSIONS[5]
+    pod = _pod(comp, 50000, dev)
+    cfg = TileConfig(1920, 1080, tile=tile, max_dup=4)
+    view, proj = _camera(1920, 1080)
+    se = build_sorted_entries_fused(pod, comp, cfg, view, proj, EYE, display_mode=mode)
+    flat = mode != 0
+    before = dict(kernels.LAUNCHES)
+    got = composite_tiles_v2(se, cfg, flat_mode=flat, transposed=False, mxu=mxu)
+    assert kernels.LAUNCHES == {**before, "composite_rows": before["composite_rows"] + 1}
+    ref = composite_tiles_plain_v2(se, cfg, flat_mode=flat, mxu=mxu)
+    assert float(got[..., 3].mean()) > 0.05
+    assert float((got - ref).abs().max()) <= K67_TOL
+    k3 = composite_tiles_v2(se, cfg, flat_mode=flat)
+    assert float((got - k3).abs().max()) <= K3_TOL
+    if mxu:  # mxu=True with the default transposed=True also takes K7
+        assert torch.equal(got, composite_tiles_v2(se, cfg, flat_mode=flat, mxu=True))
+        assert kernels.LAUNCHES["composite_rows"] == before["composite_rows"] + 2
+
+
+def test_v1_wrappers_reject_bad_inputs(dev):
+    cfg = TileConfig(256, 192, tile=16, max_dup=8)
+    pre = _v1_pre(dev)
+    planes = build_entry_planes(pre, build_tile_lists(pre, cfg), cfg)
+    with pytest.raises(ValueError, match="ent"):
+        composite_tiles(dataclasses.replace(planes, ent=planes.ent.double()), cfg)
+    with pytest.raises(ValueError, match="row_starts"):
+        composite_tiles(dataclasses.replace(planes, row_starts=planes.row_starts.long()), cfg)
+    with pytest.raises(ValueError):
+        composite_tiles(planes, TileConfig(256, 192, tile=64, max_dup=8))

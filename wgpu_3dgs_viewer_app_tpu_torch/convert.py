@@ -11,7 +11,11 @@ out, so this module needs no JAX).
   -> the port's buffer tensors at the port's capacity;
 - `viewer_from_scene`: a whole multi-model scene of the JAX viewer, given
   as plain data (pods, transforms, visibility, centres, editing state), ->
-  a port `MultiModelViewer` with the same state.
+  a port `MultiModelViewer` with the same state;
+- `preprocess_out_from_jax`, `tile_lists_from_jax`, `entry_planes_from_jax`:
+  the v1 chain's intermediate state (the JAX `PreprocessOut`, `TileLists`
+  and `EntryPlanes` fields) -> the port's containers, so that both chains
+  can be fed the same input at any stage.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ import torch
 
 from .core.transform import ModelTransform
 from .data.compression import Compressions, ShCompression, pod_to_tensors
-from .ops.binning import ROW, SortedEntries
+from .ops.binning import N_PLANES, ROW, EntryPlanes, SortedEntries, TileLists
+from .ops.preprocess import PreprocessOut
 from .viewer.viewer import MultiModelViewer, ViewerModel
 
 
@@ -69,6 +74,45 @@ def sorted_entries_to_jax(se: SortedEntries) -> tuple:
     planes = np.ascontiguousarray(ent.reshape(-1, ROW, 4).transpose(0, 2, 1))
     return (planes, se.tile_starts.cpu().numpy().astype(np.int32),
             se.tile_counts.cpu().numpy().astype(np.int32), np.int32(se.n_valid))
+
+
+def preprocess_out_from_jax(fields: dict, device="cpu") -> PreprocessOut:
+    """JAX PreprocessOut fields (field name -> numpy (N,) array; f32, and
+    bool `valid`) -> port PreprocessOut, bit for bit."""
+    out = {}
+    for name in PreprocessOut.__dataclass_fields__:
+        dtype = np.bool_ if name == "valid" else np.float32
+        out[name] = torch.from_numpy(np.array(fields[name], dtype=dtype)).to(device)
+    return PreprocessOut(**out)
+
+
+def tile_lists_from_jax(sorted_idx, sorted_keys, tile_starts, tile_counts, n_valid,
+                        device="cpu") -> TileLists:
+    """JAX TileLists fields (numpy; N * D long with a sentinel tail) -> port
+    TileLists (the live prefix; keys as int32 bit patterns)."""
+    n = int(n_valid)
+    keys = np.array(np.asarray(sorted_keys, np.uint32)[:n]).view(np.int32)  # writable copy
+    idx = np.array(np.asarray(sorted_idx)[:n], np.int32)
+    return TileLists(
+        sorted_keys=torch.from_numpy(keys).to(device),
+        sorted_idx=torch.from_numpy(idx).to(device),
+        tile_starts=torch.from_numpy(np.array(tile_starts, np.int32)).to(device),
+        tile_counts=torch.from_numpy(np.array(tile_counts, np.int32)).to(device),
+        n_valid=n,
+    )
+
+
+def entry_planes_from_jax(ent, row_starts, tile_counts, device="cpu") -> EntryPlanes:
+    """JAX EntryPlanes fields (numpy: ent (9, R, 128) f32, row starts, tile
+    counts) -> port EntryPlanes, bit for bit."""
+    ent = np.array(ent, np.float32)
+    if ent.ndim != 3 or ent.shape[0] != N_PLANES or ent.shape[2] != ROW:
+        raise ValueError(f"ent: expected ({N_PLANES}, R, {ROW}), got {ent.shape}")
+    return EntryPlanes(
+        ent=torch.from_numpy(ent).to(device),
+        row_starts=torch.from_numpy(np.array(row_starts, np.int32)).to(device),
+        tile_counts=torch.from_numpy(np.array(tile_counts, np.int32)).to(device),
+    )
 
 
 def _cut(a: np.ndarray, capacity: int, name: str) -> np.ndarray:

@@ -26,6 +26,13 @@ same name (the staged front-end's second stage; its Pallas kernel is
 `_enum_pack_kernel`): on CUDA planes it launches kernel K5
 (`csrc/enum_pack.cu`), on CPU planes it runs `enumerate_entries_from_pre_plain`.
 `build_sorted_entries` adds the entry sort (K2).
+
+The v1 chain, the unquantized path, at the end of the module:
+`build_tile_lists` keys each (splat, tile) slot as tile | top bits of the
+raw f32 depth, enumerates the tile rect in row order with no tight cull
+and sorts (K2); `build_entry_planes` gathers the sorted splats' f32 fields
+into 128-aligned per-tile runs on nine planes, which the v1 compositor
+(`composite.composite_tiles`, kernel K6) reads.
 """
 
 from __future__ import annotations
@@ -95,6 +102,11 @@ class TileConfig:
     def tile_bits(self) -> int:
         # Room for n_tiles real tiles plus the all-ones sentinel bucket.
         return max(1, self.n_tiles.bit_length())
+
+    @property
+    def depth_bits(self) -> int:
+        """Depth bits of the v1 key, tile | top bits of the f32 depth."""
+        return 32 - self.tile_bits
 
     @property
     def v2_depth_bits(self) -> int:
@@ -319,11 +331,12 @@ def build_sorted_entries(pre: PreprocessOut, cfg: TileConfig,
     return sort_entries(enumerate_entries_from_pre(pre, cfg, model_rank), cfg)
 
 
-def tile_edges_plain(keys: torch.Tensor, cfg: TileConfig) -> torch.Tensor:
+def tile_edges_plain(keys: torch.Tensor, cfg: TileConfig, shift: int) -> torch.Tensor:
     """(n_tiles + 1,) int64 run edges of each tile in ascending `keys`
-    (int32 bit patterns), compared as unsigned words."""
+    (int32 bit patterns), compared as unsigned words; the tile field sits
+    at bit `shift` and up."""
     boundaries = torch.arange(cfg.n_tiles + 1, device=keys.device, dtype=torch.int64)
-    return torch.searchsorted(u32(keys), boundaries << cfg._tile_shift, side="left")
+    return torch.searchsorted(u32(keys), boundaries << shift, side="left")
 
 
 def sorted_entries_from_edges(entries: torch.Tensor, edges: torch.Tensor,
@@ -335,3 +348,126 @@ def sorted_entries_from_edges(entries: torch.Tensor, edges: torch.Tensor,
         tile_counts=(edges[1:] - starts).to(torch.int32),
         n_valid=int(edges[cfg.n_tiles]),
     )
+
+
+# ---------------------------------------------------------------------------
+# v1: unquantized tile lists and f32 entry planes.
+# ---------------------------------------------------------------------------
+
+# Field-plane order of `EntryPlanes.ent`.
+PLANE_FIELDS = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "alpha", "r", "g", "b")
+N_PLANES = len(PLANE_FIELDS)
+_PRE_FIELDS = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "alpha", "col_r", "col_g",
+               "col_b")
+
+
+def depth_key_bits(depth: torch.Tensor, depth_bits: int) -> torch.Tensor:
+    """Positive f32 depth -> its top `depth_bits` f32 bits (int64): positive
+    f32 bit patterns order as their values."""
+    return u32(torch.clamp_min(depth, 0.0).view(torch.int32)) >> (32 - depth_bits)
+
+
+@dataclasses.dataclass
+class TileLists:
+    """Sorted live (splat, tile) slots of the v1 chain: tile t owns
+    sorted slots [tile_starts[t], tile_starts[t] + tile_counts[t]). Unlike
+    the JAX `TileLists` (N * D long, sentinel tail) it holds the live
+    prefix only."""
+
+    sorted_keys: torch.Tensor  # (n_valid,) int32 bit patterns: tile | depth bits
+    sorted_idx: torch.Tensor   # (n_valid,) int32 splat index
+    tile_starts: torch.Tensor  # (n_tiles,) int32
+    tile_counts: torch.Tensor  # (n_tiles,) int32
+    n_valid: int
+
+
+def tile_list_entries(pre: PreprocessOut, cfg: TileConfig) -> torch.Tensor:
+    """The v1 slots before the sort, (N * max_dup, 4) int32 rows (key,
+    splat index, 0, 0), slot d of splat s at row s * max_dup + d: the tile
+    rect of the splat's radius, enumerated in row order (d % rw, d // rw);
+    slots past the rect, and every slot of an invalid splat, get SENTINEL."""
+    n, dev = pre.mean_x.shape[0], pre.mean_x.device
+    tile = float(cfg.tile)
+
+    def cell(v, hi):
+        return torch.clamp(torch.floor(v / tile), 0, hi).to(torch.int64)
+
+    x, y, r = pre.mean_x, pre.mean_y, pre.radius
+    tx0, tx1 = cell(x - r, cfg.tiles_x - 1), cell(x + r, cfg.tiles_x - 1)
+    ty0, ty1 = cell(y - r, cfg.tiles_y - 1), cell(y + r, cfg.tiles_y - 1)
+    rw, rh = tx1 - tx0 + 1, ty1 - ty0 + 1
+    # An invalid splat's rect may be empty; its slots are dead either way.
+    rw_safe = torch.clamp_min(rw, 1)
+    dkey = depth_key_bits(pre.depth, cfg.depth_bits)
+    # Column by column into the int32 rows: at 6M splats an (N, D) int64
+    # temporary is 192 MB, so none is made.
+    ent = torch.zeros((n, cfg.max_dup, 4), dtype=torch.int32, device=dev)
+    ent[:, :, 1] = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+    for j in range(cfg.max_dup):
+        dx, dy = j % rw_safe, j // rw_safe
+        tile_id = (ty0 + dy) * cfg.tiles_x + (tx0 + dx)
+        live = pre.valid & (j < rw * rh) & (dy < rh)
+        ent[:, j, 0] = as_i32(torch.where(live, (tile_id << cfg.depth_bits) | dkey, SENTINEL))
+    return ent.view(-1, 4)
+
+
+def build_tile_lists(pre: PreprocessOut, cfg: TileConfig) -> TileLists:
+    """PreprocessOut -> TileLists: the v1 slots (plain torch, as the
+    reference's are XLA) sorted by the entry sort (kernel K2 on CUDA, its
+    plain version on the CPU) with the tile edges read at `cfg.depth_bits`.
+    Both sorts are stable and keep slot order among equal keys, as the
+    reference's `lax.sort(is_stable=True)` does, so the sorted slots equal
+    the reference's live prefix bit for bit."""
+    from .sort import sort_entries
+
+    se = sort_entries(tile_list_entries(pre, cfg), cfg, shift=cfg.depth_bits)
+    return TileLists(sorted_keys=se.entries[:, 0], sorted_idx=se.entries[:, 1],
+                     tile_starts=se.tile_starts, tile_counts=se.tile_counts, n_valid=se.n_valid)
+
+
+@dataclasses.dataclass
+class EntryPlanes:
+    """Sorted splat fields of the v1 chain, 128 entries a row, one plane a
+    field (`PLANE_FIELDS`): tile t's run starts at row row_starts[t] and
+    is padded to whole rows with zero-alpha entries."""
+
+    ent: torch.Tensor          # (N_PLANES, R, ROW) f32
+    row_starts: torch.Tensor   # (n_tiles,) int32
+    tile_counts: torch.Tensor  # (n_tiles,) int32
+
+
+def build_entry_planes(pre: PreprocessOut, lists: TileLists, cfg: TileConfig) -> EntryPlanes:
+    """Gather the sorted splats' f32 fields into the 128-aligned field-plane
+    layout (plain torch gathers on either device, as the reference's are
+    XLA). R = ceil(n_valid / 128) + n_tiles rows: the reference sizes it by
+    all N * D slots, so R differs, but `row_starts`, `tile_counts` and every
+    row a tile owns are the same bits. Padding slots read splat 0's fields
+    with alpha 0, as the reference's do."""
+    dev = pre.mean_x.device
+    e, n_tiles = lists.n_valid, cfg.n_tiles
+    counts = lists.tile_counts.to(torch.int64)
+    aligned = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
+    torch.cumsum((counts + ROW - 1) // ROW * ROW, 0, out=aligned[1:])
+    n_rows = -(-e // ROW) + n_tiles
+    row_ids = torch.arange(n_rows, device=dev)
+    row_t = torch.searchsorted(aligned // ROW, row_ids, right=True) - 1
+    row_t = torch.clamp(row_t, 0, n_tiles - 1)
+    starts = lists.tile_starts.to(torch.int64)
+    row_delta = (starts - aligned[:-1])[row_t]
+    row_end = (starts + counts)[row_t]
+    src_slot = (row_ids[:, None] * ROW + torch.arange(ROW, device=dev)) + row_delta[:, None]
+    live = (src_slot < row_end[:, None]).reshape(-1)
+    del row_ids, row_t, row_delta, row_end
+    src_slot = torch.clamp(src_slot.reshape(-1), 0, max(e - 1, 0))
+    if e:
+        src = torch.where(live, lists.sorted_idx[src_slot].to(torch.int64), 0)
+    else:
+        src = torch.zeros_like(src_slot)
+    del src_slot
+    ent = torch.empty((N_PLANES, n_rows * ROW), dtype=torch.float32, device=dev)
+    for i, name in enumerate(_PRE_FIELDS):
+        torch.index_select(getattr(pre, name), 0, src, out=ent[i])
+    ent[PLANE_FIELDS.index("alpha")].masked_fill_(~live, 0.0)
+    return EntryPlanes(ent=ent.view(N_PLANES, n_rows, ROW),
+                       row_starts=(aligned[:-1] // ROW).to(torch.int32),
+                       tile_counts=lists.tile_counts.to(torch.int32))

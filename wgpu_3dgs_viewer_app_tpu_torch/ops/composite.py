@@ -2,9 +2,11 @@
 
 `composite_tiles_v2` is the counterpart of the JAX package's
 `composite_tiles_pallas_v2`. On CUDA entries it launches kernel K3
-(`csrc/composite.cu`); on CPU entries it runs the plain version,
-`composite_tiles_plain_v2`, a port of `composite_tiles_jnp_v2`: per tile,
-chunks of 128 entries aligned to the global entry order, alpha as a
+(`csrc/composite.cu`), or with `transposed=False` or `mxu=True` the
+row-major kernel K7 (`csrc/composite_rows.cu`); on CPU entries it runs the
+plain version, `composite_tiles_plain_v2`, a port of
+`composite_tiles_jnp_v2` (and of the Pallas kernel's `mxu` exponent): per
+tile, chunks of 128 entries aligned to the global entry order, alpha as a
 (pixels, entries) matrix, transmittance by a cumulative product along the
 entries, and an exit once every pixel of the tile has T <= 1/255.
 
@@ -12,6 +14,12 @@ Alpha per entry and pixel: op * 2^min(power2, 0) in splat mode, with the
 conic rows pre-scaled by -0.5 * log2(e); in ellipse/point mode the flat
 opacity inside the 2-sigma cut. Alpha below 1/255 is dropped. The output
 is (H, W, 4) f32: premultiplied RGB and A = 1 - T.
+
+`composite_tiles` is the v1 compositor over the unquantized `EntryPlanes`
+(the JAX `composite_tiles`): kernel K6 (`csrc/composite_v1.cu`) on CUDA
+planes, `composite_tiles_plain` (a port of `composite_tiles_jnp`) on CPU
+planes. It works in natural-log units with absolute pixel coordinates and
+clamps each alpha to ALPHA_MAX per pixel.
 """
 
 from __future__ import annotations
@@ -21,7 +29,8 @@ import torch
 
 from ..core.f16 import f16_bits_to_f32, u32, unpack2xf16
 from . import kernels
-from .binning import MEAN_FIX_BIAS, MEAN_FIX_SCALE, ROW, SortedEntries, TileConfig
+from .binning import (ALPHA_MAX, MEAN_FIX_BIAS, MEAN_FIX_SCALE, N_PLANES, ROW, EntryPlanes,
+                      SortedEntries, TileConfig)
 
 ALPHA_EPS = 1.0 / 255.0
 T_EPS = 1.0 / 255.0
@@ -34,108 +43,247 @@ def _u8_unit(w, shift):
     return ((w >> shift) & 0xFF).to(torch.float32) * (1.0 / 255.0)
 
 
+def _tiles_to_image(tiles: torch.Tensor, cfg: TileConfig) -> torch.Tensor:
+    """(n_tiles, tile * tile, 4) per-tile pixels -> the (H, W, 4) image."""
+    tile = cfg.tile
+    img = tiles.reshape(cfg.tiles_y, cfg.tiles_x, tile, tile, 4).permute(0, 2, 1, 3, 4)
+    img = img.reshape(cfg.tiles_y * tile, cfg.tiles_x * tile, 4)
+    return img[: cfg.height, : cfg.width]
+
+
+def _in_image(cfg: TileConfig, lane: torch.Tensor) -> torch.Tensor:
+    """(n_tiles, tile * tile) bool: the tile pixel lies inside the image."""
+    tid = torch.arange(cfg.n_tiles, device=lane.device)[:, None]
+    return (((tid // cfg.tiles_x) * cfg.tile + lane // cfg.tile < cfg.height)
+            & ((tid % cfg.tiles_x) * cfg.tile + lane % cfg.tile < cfg.width))
+
+
+def _excl_incl(a: torch.Tensor) -> tuple:
+    """Exclusive and inclusive cumulative products of 1 - a along the entries."""
+    incl = torch.cumprod(1.0 - a, dim=-1)
+    return torch.cat([torch.ones_like(incl[..., :1]), incl[..., :-1]], dim=-1), incl
+
+
+def _chunk_loop(cfg: TileConfig, n_chunks: torch.Tensor, blend,
+                stats: dict | None) -> torch.Tensor:
+    """The plain compositors' chunk loop: tiles advance one 128-entry chunk at a
+    time together, at most _TILES_PER_STEP at a time (bounds the (tiles,
+    pixels, 128) temporaries), while the tile has a chunk left and any of
+    its pixels has T > T_EPS. `blend(c, idx)` gives chunk c of the tiles
+    idx as alpha (A, P, C), r, g, b (A, 1, C) and live (A, C). Each pixel
+    adds T * sum(excl * alpha * colour) and takes the chunk's product of
+    (1 - alpha) into T. With `stats`, counts in stats["pairs"] the (pixel
+    inside the image, live entry) blends this data needs: for each pixel,
+    its live entries up to and including the one that brings its own T to
+    <= T_EPS; and in stats["rows"] the chunks the tiles read."""
+    p = cfg.tile * cfg.tile
+    dev = n_chunks.device
+    t_all = torch.ones((cfg.n_tiles, p, 1), device=dev)
+    rgb_all = torch.zeros((cfg.n_tiles, p, 3), device=dev)
+    if stats is not None:
+        pairs = torch.zeros((), dtype=torch.int64, device=dev)
+        rows = 0
+        in_image = _in_image(cfg, torch.arange(p, device=dev))
+    max_chunks = int(n_chunks.max()) if cfg.n_tiles else 0
+    for c in range(max_chunks):
+        active = ((c < n_chunks) & (t_all.amax(dim=(1, 2)) > T_EPS)).nonzero().flatten()
+        for g in range(0, active.numel(), _TILES_PER_STEP):
+            idx = active[g:g + _TILES_PER_STEP]
+            a, r, gr, b, live = blend(c, idx)
+            excl, incl = _excl_incl(a)
+            w = excl * a
+            t = t_all[idx]
+            if stats is not None:
+                pairs += (live[:, None, :] & (t * excl > T_EPS) & in_image[idx][..., None]).sum()
+            sums = torch.stack([(w * r).sum(-1), (w * gr).sum(-1), (w * b).sum(-1)], dim=-1)
+            rgb_all[idx] = rgb_all[idx] + t * sums
+            t_all[idx] = t * incl[..., -1:]
+        if stats is not None:
+            rows += active.numel()
+    if stats is not None:
+        stats["pairs"], stats["rows"] = int(pairs), rows
+    return _tiles_to_image(torch.cat([rgb_all, 1.0 - t_all], dim=-1), cfg)
+
+
+def composite_tiles_plain(planes: EntryPlanes, cfg: TileConfig, flat_mode: bool = False,
+                          stats: dict | None = None) -> torch.Tensor:
+    """Plain version of K6, a port of the JAX `composite_tiles_jnp`: per
+    tile, one 128-entry row of its run at a time (see `_chunk_loop`, which
+    also fills `stats`)."""
+    tile = cfg.tile
+    ent = planes.ent
+    dev = ent.device
+    row_starts = planes.row_starts.to(torch.int64)
+    counts = planes.tile_counts.to(torch.int64)
+    lane = torch.arange(tile * tile, device=dev)
+    tid = torch.arange(cfg.n_tiles, device=dev)[:, None]
+    px = ((tid % cfg.tiles_x) * tile + lane % tile).to(torch.float32) + 0.5  # (T, P) absolute
+    py = ((tid // cfg.tiles_x) * tile + lane // tile).to(torch.float32) + 0.5
+    col = torch.arange(ROW, device=dev)
+
+    def blend(c, idx):
+        mx, my, ca, cb, cc, op, r, gr, b = ent[:, row_starts[idx] + c, None, :]  # (A, 1, C)
+        dx = px[idx][..., None] - mx  # (A, P, C)
+        dy = py[idx][..., None] - my
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        if flat_mode:
+            a = torch.where(power >= FLAT_POWER_CUTOFF, op, 0.0)
+        else:
+            a = op * torch.exp(torch.clamp_max(power, 0.0))
+        a = torch.clamp_max(a, ALPHA_MAX)
+        a = torch.where(a < ALPHA_EPS, 0.0, a)
+        return a, r, gr, b, c * ROW + col < counts[idx, None]
+
+    return _chunk_loop(cfg, (counts + ROW - 1) // ROW, blend, stats)
+
+
+def _composite_tiles_v1_cuda(planes: EntryPlanes, cfg: TileConfig,
+                             flat_mode: bool) -> torch.Tensor:
+    lib = kernels.library()
+    if cfg.tile * cfg.tile > 1024:
+        raise ValueError(f"tile {cfg.tile}: the compositor runs one thread per pixel (<= 32x32)")
+    ent = planes.ent
+    kernels.require(ent, "ent", torch.float32, (N_PLANES, ent.shape[1], ROW))
+    kernels.require(planes.row_starts, "row_starts", torch.int32, (cfg.n_tiles,), ent.device)
+    kernels.require(planes.tile_counts, "tile_counts", torch.int32, (cfg.n_tiles,), ent.device)
+    out = torch.empty((cfg.height, cfg.width, 4), dtype=torch.float32, device=ent.device)
+    p = kernels.ptr
+    kernels.check(lib.gs_composite_v1(p(ent), ent.shape[1], p(planes.row_starts),
+                                      p(planes.tile_counts), cfg.n_tiles, cfg.tile, cfg.tiles_x,
+                                      cfg.width, cfg.height, int(flat_mode), p(out),
+                                      kernels.stream()), "gs_composite_v1")
+    kernels.LAUNCHES["composite_v1"] += 1
+    return out
+
+
+def composite_tiles(planes: EntryPlanes, cfg: TileConfig, flat_mode: bool = False) -> torch.Tensor:
+    """EntryPlanes -> (H, W, 4) premultiplied RGBA, the v1 compositor:
+    kernel K6 on CUDA, the plain version on the CPU."""
+    if planes.ent.device.type == "cpu":
+        return composite_tiles_plain(planes, cfg, flat_mode)
+    return _composite_tiles_v1_cuda(planes, cfg, flat_mode)
+
+
 def _decode(chunk, live):
-    """(..., C, 4) int64 words -> per-entry rows (op, mx, my, a2, b2, c2, r, g, b)."""
+    """(..., C, 4) int64 words -> per-entry rows (op, mx, my, ca, cb, cc, r,
+    g, b): the conic unscaled, dead entries at op 0."""
     key, p1, p2, p3 = chunk.unbind(-1)
-    l2 = float(np.float32(LOG2E))
-    s = float(np.float32(-0.5) * np.float32(LOG2E))
     op = torch.where(live, _u8_unit(key, 0), 0.0)
     inv = 1.0 / MEAN_FIX_SCALE
     mx = (p1 & 0xFFF).to(torch.float32) * inv - MEAN_FIX_BIAS
     my = ((p1 >> 12) & 0xFFF).to(torch.float32) * inv - MEAN_FIX_BIAS
     ca, cb = unpack2xf16(p2)
     cc = f16_bits_to_f32(p3 & 0xFFFF)
-    return (op, mx, my, ca * s, cb * -l2, cc * s,
-            _u8_unit(p3, 16), _u8_unit(p3, 24), _u8_unit(p1, 24))
+    return op, mx, my, ca, cb, cc, _u8_unit(p3, 16), _u8_unit(p3, 24), _u8_unit(p1, 24)
 
 
-def composite_tiles_plain_v2(entries: SortedEntries, cfg: TileConfig,
-                             flat_mode: bool = False, stats: dict | None = None) -> torch.Tensor:
-    """Plain version of K3. Tiles advance chunk by chunk together, at most
-    _TILES_PER_STEP at a time (bounds the (tiles, pixels, 128) temporaries).
-    With `stats`, also counts in stats["pairs"] the (pixel, live entry)
-    blends this data needs: for each pixel of the image, its live entries
-    up to and including the one that brings its own T to <= T_EPS."""
-    tile, n_tiles = cfg.tile, cfg.n_tiles
-    p = tile * tile
+def _power2_horner(mx, my, ca, cb, cc, px, py):
+    """log2-unit exponent from the pre-scaled conic rows, Horner form."""
+    l2 = float(np.float32(LOG2E))
+    s = float(np.float32(-0.5) * np.float32(LOG2E))
+    a2, b2, c2 = ca * s, cb * -l2, cc * s
+    dx = px - mx
+    dy = py - my
+    return (a2 * dx + b2 * dy) * dx + (c2 * dy) * dy
+
+
+def _fma(a, b, c):
+    """f32 fma(a, b, c): the product of two f32 is exact in f64, so only the
+    sum rounds, to f64 and then to f32; that double rounding differs from
+    an fma's single one only in rare near-tie cases."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _power2_quadratic(mx, my, ca, cb, cc, px, py):
+    """log2-unit exponent in the quadratic-basis form of the JAX kernel's
+    `mxu` mode: F = [px^2, py^2, px py, px, py, 1] (per pixel) dotted with
+    per-entry coefficients G. Expanded about the tile origin it cancels
+    terms of up to ~1e4, so the rounding of each step shows: the
+    coefficients and the dot are evaluated as the reference evaluates them
+    on the CPU, whose compiler contracts a * b + c * d into fma(a, b, c * d)
+    and accumulates the dot as a chain of fmas in term order. K7 repeats
+    this with explicit fmaf."""
+    l2 = float(np.float32(LOG2E))
+    h = float(np.float32(-0.5) * np.float32(LOG2E))
+    g = (h * ca, h * cc, -l2 * cb, l2 * _fma(ca, mx, cb * my), l2 * _fma(cc, my, cb * mx),
+         -l2 * _fma(cb * mx, my, 0.5 * _fma(ca * mx, mx, (cc * my) * my)))
+    f = (px * px, py * py, px * py, px, py, torch.ones_like(px))
+    power = f[0] * g[0]
+    for fk, gk in zip(f[1:], g[1:]):
+        power = _fma(fk, gk, power)
+    return power
+
+
+def composite_tiles_plain_v2(entries: SortedEntries, cfg: TileConfig, flat_mode: bool = False,
+                             stats: dict | None = None, mxu: bool = False) -> torch.Tensor:
+    """Plain version of K3 and K7: chunks aligned to the global entry order,
+    entries outside the tile's run dead (see `_chunk_loop`, which also fills
+    `stats`). `mxu` evaluates the exponent in the quadratic-basis form
+    (splat mode only; flat mode keeps the Horner form, as the reference
+    does)."""
+    tile = cfg.tile
+    power2_fn = _power2_quadratic if mxu and not flat_mode else _power2_horner
     ent = u32(entries.entries)
     dev = ent.device
     ent = torch.cat([ent, ent.new_zeros(((-ent.shape[0]) % ROW, 4))])
     starts = entries.tile_starts.to(torch.int64)
     ends = starts + entries.tile_counts.to(torch.int64)
     row0 = starts // ROW
-    n_chunks = torch.where(ends > starts, (ends + ROW - 1) // ROW - row0, 0)
-    lane = torch.arange(p, device=dev)
+    lane = torch.arange(tile * tile, device=dev)
     px = ((lane % tile).to(torch.float32) + 0.5)[:, None]  # (P, 1) tile-local
     py = ((lane // tile).to(torch.float32) + 0.5)[:, None]
     col = torch.arange(ROW, device=dev)
     cut = float(np.float32(FLAT_POWER_CUTOFF * LOG2E))
 
-    t_all = torch.ones((n_tiles, p, 1), device=dev)
-    rgb_all = torch.zeros((n_tiles, p, 3), device=dev)
-    if stats is not None:
-        pairs = torch.zeros((), dtype=torch.int64, device=dev)
-        tid = torch.arange(n_tiles, device=dev)[:, None]
-        in_image = (((tid // cfg.tiles_x) * tile + lane // tile < cfg.height)
-                    & ((tid % cfg.tiles_x) * tile + lane % tile < cfg.width))  # (T, P)
-    max_chunks = int(n_chunks.max()) if n_tiles else 0
-    for c in range(max_chunks):
-        active = ((c < n_chunks) & (t_all.amax(dim=(1, 2)) > T_EPS)).nonzero().flatten()
-        for g in range(0, active.numel(), _TILES_PER_STEP):
-            idx = active[g:g + _TILES_PER_STEP]
-            gidx = (row0[idx] + c)[:, None] * ROW + col  # (A, C) global entry index
-            live = (gidx >= starts[idx, None]) & (gidx < ends[idx, None])
-            op, mx, my, a2, b2, c2, r, gr, b = (v[:, None, :] for v in _decode(ent[gidx], live))
-            dx = px - mx  # (A, P, C)
-            dy = py - my
-            power2 = (a2 * dx + b2 * dy) * dx + (c2 * dy) * dy
-            if flat_mode:
-                a = torch.where(power2 >= cut, op, 0.0)
-            else:
-                a = op * torch.exp2(torch.clamp_max(power2, 0.0))
-            a = torch.where(a < ALPHA_EPS, 0.0, a)
-            incl = torch.cumprod(1.0 - a, dim=-1)
-            excl = torch.cat([torch.ones_like(incl[..., :1]), incl[..., :-1]], dim=-1)
-            w = excl * a
-            t = t_all[idx]
-            if stats is not None:
-                needed = live[:, None, :] & (t * excl > T_EPS) & in_image[idx][..., None]
-                pairs += needed.sum()
-            sums = torch.stack([(w * r).sum(-1), (w * gr).sum(-1), (w * b).sum(-1)], dim=-1)
-            rgb_all[idx] = rgb_all[idx] + t * sums
-            t_all[idx] = t * incl[..., -1:]
-    if stats is not None:
-        stats["pairs"] = int(pairs)
-    tiles = torch.cat([rgb_all, 1.0 - t_all], dim=-1)  # (T, P, 4)
-    img = tiles.reshape(cfg.tiles_y, cfg.tiles_x, tile, tile, 4).permute(0, 2, 1, 3, 4)
-    img = img.reshape(cfg.tiles_y * tile, cfg.tiles_x * tile, 4)
-    return img[: cfg.height, : cfg.width]
+    def blend(c, idx):
+        gidx = (row0[idx] + c)[:, None] * ROW + col  # (A, C) global entry index
+        live = (gidx >= starts[idx, None]) & (gidx < ends[idx, None])
+        op, mx, my, ca, cb, cc, r, gr, b = (v[:, None, :] for v in _decode(ent[gidx], live))
+        power2 = power2_fn(mx, my, ca, cb, cc, px, py)  # (A, P, C)
+        if flat_mode:
+            a = torch.where(power2 >= cut, op, 0.0)
+        else:
+            a = op * torch.exp2(torch.clamp_max(power2, 0.0))
+        return torch.where(a < ALPHA_EPS, 0.0, a), r, gr, b, live
+
+    n_chunks = torch.where(ends > starts, (ends + ROW - 1) // ROW - row0, 0)
+    return _chunk_loop(cfg, n_chunks, blend, stats)
 
 
-def _composite_tiles_cuda(entries: SortedEntries, cfg: TileConfig, flat_mode: bool) -> torch.Tensor:
+def _composite_tiles_cuda(entries: SortedEntries, cfg: TileConfig, flat_mode: bool,
+                          rows: bool, mxu: bool) -> torch.Tensor:
+    """K3 (`rows` False) or K7 (`rows` True; `mxu`: the quadratic-basis
+    exponent in splat mode)."""
     lib = kernels.library()
     if cfg.tile * cfg.tile > 1024:
         raise ValueError(f"tile {cfg.tile}: the compositor runs one thread per pixel (<= 32x32)")
     ent = entries.entries
     kernels.require(ent, "entries", torch.int32, (ent.shape[0], 4))
-    kernels.require(entries.tile_starts, "tile_starts", torch.int32, (cfg.n_tiles,))
-    kernels.require(entries.tile_counts, "tile_counts", torch.int32, (cfg.n_tiles,))
+    kernels.require(entries.tile_starts, "tile_starts", torch.int32, (cfg.n_tiles,), ent.device)
+    kernels.require(entries.tile_counts, "tile_counts", torch.int32, (cfg.n_tiles,), ent.device)
     out = torch.empty((cfg.height, cfg.width, 4), dtype=torch.float32, device=ent.device)
     p = kernels.ptr
-    kernels.check(lib.gs_composite(p(ent), p(entries.tile_starts), p(entries.tile_counts),
-                                   cfg.n_tiles, cfg.tile, cfg.tiles_x, cfg.width, cfg.height,
-                                   int(flat_mode), p(out), kernels.stream()), "gs_composite")
-    kernels.LAUNCHES["composite"] += 1
+    args = (p(entries.tile_starts), p(entries.tile_counts), cfg.n_tiles, cfg.tile, cfg.tiles_x,
+            cfg.width, cfg.height, int(flat_mode))
+    if rows:
+        kernels.check(lib.gs_composite_rows(p(ent), *args, int(mxu and not flat_mode), p(out),
+                                            kernels.stream()), "gs_composite_rows")
+        kernels.LAUNCHES["composite_rows"] += 1
+    else:
+        kernels.check(lib.gs_composite(p(ent), *args, p(out), kernels.stream()), "gs_composite")
+        kernels.LAUNCHES["composite"] += 1
     return out
 
 
-def composite_tiles_v2(entries: SortedEntries, cfg: TileConfig,
-                       flat_mode: bool = False) -> torch.Tensor:
-    """SortedEntries -> (H, W, 4) premultiplied RGBA: kernel K3 on CUDA, the
-    plain version on the CPU."""
+def composite_tiles_v2(entries: SortedEntries, cfg: TileConfig, flat_mode: bool = False,
+                       transposed: bool = True, mxu: bool = False) -> torch.Tensor:
+    """SortedEntries -> (H, W, 4) premultiplied RGBA: on CUDA kernel K3, or
+    the row-major kernel K7 with `transposed=False` or `mxu=True` (as the
+    JAX `composite_tiles_pallas_v2` picks its row-major kernel); on the CPU
+    the plain version (with `mxu`)."""
     if entries.entries.device.type == "cpu":
-        return composite_tiles_plain_v2(entries, cfg, flat_mode)
-    return _composite_tiles_cuda(entries, cfg, flat_mode)
+        return composite_tiles_plain_v2(entries, cfg, flat_mode, mxu=mxu)
+    return _composite_tiles_cuda(entries, cfg, flat_mode, rows=mxu or not transposed, mxu=mxu)
 
 
 def over_background(img: torch.Tensor, background) -> torch.Tensor:

@@ -32,7 +32,8 @@ BUILD_DIR = Path(os.environ.get("GS_TORCH_BUILD_DIR", CSRC.parent / "_build"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--fmad=false"]
 
-LAUNCHES = {"fused": 0, "sort": 0, "composite": 0, "geometry": 0, "enum_pack": 0}
+LAUNCHES = {"fused": 0, "sort": 0, "composite": 0, "geometry": 0, "enum_pack": 0,
+            "composite_v1": 0, "composite_rows": 0}
 # Seconds the last build in this process took (None: no build ran).
 build_seconds = None
 
@@ -51,6 +52,8 @@ _SIGNATURES = {
     "gs_sort_compact_radix": [_P, ctypes.c_longlong, _P, _P, _P, _I, _P, _P, _P],
     "gs_sort_tile_edges": [_P, _I, _I, _I, _P, _P],
     "gs_composite": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "gs_composite_v1": [_P, ctypes.c_longlong, _P, _P] + [_I] * 6 + [_P, _P],
+    "gs_composite_rows": [_P, _P, _P] + [_I] * 7 + [_P, _P],
 }
 
 

@@ -11,7 +11,9 @@ Both return the live entries only; tie order is not part of the contract.
 It also takes the role of the reference's `sort_and_range_entries`: the
 merged multi-model frame hands it all models' entries and the config with
 the rank field; the keys sort as whole 32-bit words and the tile edges are
-read at `cfg._tile_shift`, so the rank needs nothing more here.
+read at `cfg._tile_shift`, so the rank needs nothing more here. The v1
+chain (`binning.build_tile_lists`) sorts its (key, splat index, 0, 0)
+slots here too and reads the edges at `cfg.depth_bits`.
 """
 
 from __future__ import annotations
@@ -24,16 +26,19 @@ from .binning import (SENTINEL, SortedEntries, TileConfig, sorted_entries_from_e
                       tile_edges_plain)
 
 
-def sort_entries_plain(entries: torch.Tensor, cfg: TileConfig) -> SortedEntries:
-    """Plain version of K2: drop sentinel slots, sort by unsigned key."""
+def sort_entries_plain(entries: torch.Tensor, cfg: TileConfig,
+                       shift: int | None = None) -> SortedEntries:
+    """Plain version of K2: drop sentinel slots, sort by unsigned key
+    (stable), tile edges at bit `shift` (default `cfg._tile_shift`)."""
     keys = u32(entries[:, 0])
     live = keys != SENTINEL
     order = torch.sort(keys[live], stable=True).indices
     entries = entries[live][order]
-    return sorted_entries_from_edges(entries, tile_edges_plain(entries[:, 0], cfg), cfg)
+    shift = cfg._tile_shift if shift is None else shift
+    return sorted_entries_from_edges(entries, tile_edges_plain(entries[:, 0], cfg, shift), cfg)
 
 
-def _sort_entries_cuda(entries: torch.Tensor, cfg: TileConfig) -> SortedEntries:
+def _sort_entries_cuda(entries: torch.Tensor, cfg: TileConfig, shift: int) -> SortedEntries:
     lib = kernels.library()
     n = entries.shape[0]
     kernels.require(entries, "entries", torch.int32, (n, 4))
@@ -53,16 +58,18 @@ def _sort_entries_cuda(entries: torch.Tensor, cfg: TileConfig) -> SortedEntries:
                                             n_live, p(hist), p(digit_total), st),
                   "gs_sort_compact_radix")
     edges = torch.zeros(cfg.n_tiles + 1, dtype=i32, device=dev)
-    kernels.check(lib.gs_sort_tile_edges(p(buf_a), n_live, cfg._tile_shift, cfg.n_tiles,
-                                         p(edges), st), "gs_sort_tile_edges")
+    kernels.check(lib.gs_sort_tile_edges(p(buf_a), n_live, shift, cfg.n_tiles, p(edges), st),
+                  "gs_sort_tile_edges")
     kernels.LAUNCHES["sort"] += 1
     return SortedEntries(entries=buf_a, tile_starts=edges[:-1],
                          tile_counts=edges[1:] - edges[:-1], n_valid=n_live)
 
 
-def sort_entries(entries: torch.Tensor, cfg: TileConfig) -> SortedEntries:
+def sort_entries(entries: torch.Tensor, cfg: TileConfig,
+                 shift: int | None = None) -> SortedEntries:
     """(E, 4) int32 entries -> SortedEntries: kernel K2 on CUDA, the plain
-    version on the CPU."""
+    version on the CPU. The tile edges are read at key bit `shift`
+    (default `cfg._tile_shift`, the v2 layout)."""
     if entries.device.type == "cpu":
-        return sort_entries_plain(entries, cfg)
-    return _sort_entries_cuda(entries, cfg)
+        return sort_entries_plain(entries, cfg, shift)
+    return _sort_entries_cuda(entries, cfg, cfg._tile_shift if shift is None else shift)
