@@ -7,8 +7,10 @@ Phases, each printing what it found:
   1. device: the card's name and power limit (nvidia-smi) and the seconds the
      CUDA kernels took to build from `wgpu_3dgs_viewer_app_tpu_torch/csrc`;
   2. each kernel against its plain torch version on the card, with both
-     times: K1 front-end (ungated and with every gate), K2 entry sort and K3
-     compositor at the shapes of the config-1 path below; K4 query geometry
+     times: K1 front-end (ungated and with every gate), K2 entry sort (row
+     for row against the stable plain sort, with each of its kernels' bytes
+     and achieved rate under torch.profiler) and the v2 compositor K3 (Horner
+     form, within rounding) at the shapes of the config-1 path below; K4 query geometry
      (ungated and with the mask and edit gates) at the config-3 shapes; K5
      enumerate-and-pack on the plain preprocess of the config-1 scene and of
      one config-2 model (ranks 0 and 2), also slot for slot against K1; K1
@@ -17,7 +19,9 @@ Phases, each printing what it found:
      repo's golden gate (`tests/test_golden.py::assert_golden_close`);
   4. BASELINE config 1: a 6M-splat scene at 1920x1080, SH degree 3, norm8
      SH + half cov3d, tile 32, max_dup 4, through `Viewer.render`: 2 warm-up
-     and 5 timed frames; the launch counters must show K1-K3 ran;
+     and 5 timed frames; the launch counters must show K1-K3 ran once a
+     frame, and the frame must meet the plain compositor on its own sorted
+     entries within 1e-4;
   5. BASELINE config 3: selection and editing on a 2M-splat scene at the
      same settings. Timed step (2 warm-up, 5 timed): the query geometry
      (K4) -> `select_rect` -> `set_selection` -> a selection edit and
@@ -35,16 +39,18 @@ Phases, each printing what it found:
      frames blended back to front, route against route, the rank and depth
      order of the sorted entries, then a hidden model, an order flip, a
      resize and a change of compression;
-  7. the two compositors off the viewer's frame, on the config-1 scene: the
+  7. the two paths off the viewer's frame, on the config-1 scene: the
      v1 chain (plain preprocess -> `build_tile_lists` (K2) ->
      `build_entry_planes` -> `composite_tiles` (K6) -> `over_background`)
      and the row-major v2 frame (K1 -> K2 -> `composite_tiles_v2(
-     transposed=False, mxu=True)`, K7), 2 warm-up and 5 timed frames each
-     with their launch counts, coverage and difference from phase 4's frame;
-     then K6 against its plain version (splat; flat on the BASELINE config-0
-     shapes: 50k splats, 800x600, point mode, SH 0) and K7 against its plain
-     version with the Horner and the quadratic-basis exponent, against K3,
-     and flat on the config-0 shapes.
+     transposed=False, mxu=True)`, K3 in the quadratic-basis form), 2
+     warm-up and 5 timed frames each with their launch counts, coverage and
+     difference from phase 4's frame; then K6 against its plain version
+     (splat; flat on the BASELINE config-0 shapes: 50k splats, 800x600,
+     point mode, SH 0), K2 row for row at the v1 key, and K3 against its
+     plain version with the quadratic-basis exponent and in flat mode on the
+     config-0 shapes, for both `transposed` values, and basis against
+     Horner on the card.
 
 The line before the last two is the kernels' JSON record (each kernel's
 launches on its path, error against its plain version, times, least time
@@ -66,7 +72,9 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-K3_TOL = 1.0 / 255.0 + 1e-5
+# An image whose tiles stop at their 128-entry chunk exits may lack up to
+# the remaining transmittance, 1/255 a channel, against one drawn on.
+EXIT_TOL = 1.0 / 255.0 + 1e-5
 
 KERNELS = {
     "fused": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/fused.cu",
@@ -75,7 +83,8 @@ KERNELS = {
              "wgpu_3dgs_viewer_app_tpu/ops/compact.py:95; "
              "wgpu_3dgs_viewer_app_tpu/ops/sort.py:325; "
              "wgpu_3dgs_viewer_app_tpu/ops/sort.py:779"),
-    "composite": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/composite.cu",
+    "composite": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/composite_v2.cu",
+                  "wgpu_3dgs_viewer_app_tpu/ops/composite.py:489; "
                   "wgpu_3dgs_viewer_app_tpu/ops/composite.py:639"),
     "geometry": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/geometry.cu",
                  "wgpu_3dgs_viewer_app_tpu/ops/fused.py:693"),
@@ -83,8 +92,6 @@ KERNELS = {
                   "wgpu_3dgs_viewer_app_tpu/ops/binning.py:611"),
     "composite_v1": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/composite_v1.cu",
                      "wgpu_3dgs_viewer_app_tpu/ops/composite.py:163"),
-    "composite_rows": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/composite_rows.cu",
-                       "wgpu_3dgs_viewer_app_tpu/ops/composite.py:489"),
 }
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes and f32 (non-tensor-core)
@@ -102,11 +109,10 @@ K1_OPS_SPLAT, K1_OPS_SH, K1_OPS_SLOT, OPS_EDIT = 230, 4, 40, 110
 K4_OPS_SPLAT, K2_OPS_LIVE, K3_OPS_BLEND = 150, 34, 22
 K5_OPS_SPLAT = 60
 # K6 26 per blend (K3's 22 with the natural-log exponent's extra scale, the
-# per-pixel clamp and T folded into the weight); K7 K3's 22 in the Horner
-# form, 24 in the quadratic-basis form (a 6-term dot instead of the Horner
-# nest).
-K6_OPS_BLEND, K7_OPS_BLEND, K7_MXU_OPS_BLEND = 26, 22, 24
-# K6 and K7 end where their plain versions end: they differ by rounding.
+# per-pixel clamp and T folded into the weight); K3 24 in the quadratic-basis
+# form (a 6-term dot instead of the Horner nest).
+K6_OPS_BLEND, K3_MXU_OPS_BLEND = 26, 24
+# K3 and K6 end where their plain versions end: they differ by rounding.
 K67_TOL = 1e-4
 
 CONFIG2_SIZE = (1920, 1088)
@@ -157,6 +163,67 @@ def bound(n_bytes: float, ops: float) -> tuple:
     operations over the f32 rate, whichever is larger."""
     b, o = n_bytes / HBM_BYTES_PER_MS, ops / F32_OPS_PER_MS
     return (b, "bytes") if b >= o else (o, "operations")
+
+
+def device_kernel_ms(fn, reps: int) -> tuple:
+    """torch.profiler over `reps` calls of fn() after one warm-up: (ms per
+    call of each kernel name, the ms of each launch of each name in launch
+    order)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per_name, launches = {}, {}
+    events = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        ms = e.time_range.elapsed_us() / 1e3
+        per_name[e.name] = per_name.get(e.name, 0.0) + ms / reps
+        launches.setdefault(e.name, []).append(ms)
+    require(per_name, "the profiler saw no device time")
+    return per_name, launches
+
+
+def k2_kernel_report(sort, e: int, n_live: int, n_tiles: int) -> dict:
+    """Each K2 kernel's device time per sort, the bytes it must move (each
+    input read once, each output written once) and its achieved rate."""
+    per_name, launches = device_kernel_ms(sort, 5)
+
+    def find(part):
+        names = [k for k in per_name if part in k]
+        require(len(names) == 1, f"K2 kernel {part}: {names} among {sorted(per_name)}")
+        return names[0]
+
+    passes = launches[find("onesweep_pass_kernel")]
+    require(len(passes) == 4 * 5, f"{len(passes)} one-sweep passes in 5 sorts")
+    first = sum(passes[0::4]) / 5
+    rows = [("upfront", "upfront_kernel (live count, 4 histograms)",
+             per_name[find("upfront_kernel")], 16 * e, 4 * 1025),
+            ("digit_start", "digit_start_kernel", per_name[find("digit_start_kernel")],
+             4 * 1024, 4 * 1024),
+            ("pass1", "onesweep_pass_kernel, pass 1 (compacts)", first, 16 * e, 16 * n_live),
+            ("passes2_4", "onesweep_pass_kernel, passes 2-4",
+             per_name[find("onesweep_pass_kernel")] - first, 3 * 16 * n_live, 3 * 16 * n_live),
+            ("tile_edges", "tile_edges_kernel", per_name[find("tile_edges_kernel")],
+             16 * n_live, 4 * (n_tiles + 1))]
+    other = sum(ms for k, ms in per_name.items()
+                if not any(p in k for p in ("upfront_kernel", "digit_start_kernel",
+                                            "onesweep_pass_kernel", "tile_edges_kernel")))
+    out = {}
+    for key, name, ms, rd, wr in rows:
+        rate = (rd + wr) / (ms * 1e-3) / 1e12
+        out[key] = {"ms": ms, "bytes_read": rd, "bytes_written": wr, "tb_per_s": rate}
+        log(f"phase 2 K2 {name}: {ms:.4f} ms, reads {rd / 1e6:.1f} MB, writes {wr / 1e6:.1f} MB, "
+            f"{rate:.3f} TB/s ({rate / (HBM_BYTES_PER_MS * 1e3 / 1e12):.1%} of 3.35 TB/s)")
+    out["other_device_ms"] = other
+    log(f"phase 2 K2 the rest (memsets, the live count's copy): {other:.4f} ms; sum of kernels "
+        f"{sum(per_name.values()):.4f} ms per sort under the profiler")
+    return out
 
 
 def pod_tensors(g, device):
@@ -287,6 +354,7 @@ def phase_kernels(g1, cam1, g3, cam3, device) -> dict:
         TileConfig, composite_tiles_plain_v2, composite_tiles_v2, enumerate_entries_fused,
         enumerate_entries_plain, preprocess_geometry_fused, preprocess_geometry_plain,
         sort_entries, sort_entries_plain)
+    from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import ROW
     from wgpu_3dgs_viewer_app_tpu_torch.testing import (compare_entries, compare_preprocess,
                                                         compare_sorted)
 
@@ -331,9 +399,9 @@ def phase_kernels(g1, cam1, g3, cam3, device) -> dict:
         f"kernel {gated['gated_ms']:.3f} ms, plain {gated['gated_plain_ms']:.3f} ms, "
         f"bound {gb_ms:.3f} ms")
 
-    # K2.
+    # K2, row for row against the stable plain sort.
     se_k = sort_entries(ent_k, cfg)
-    compare_sorted(se_k, sort_entries_plain(ent_k, cfg))
+    compare_sorted(se_k, sort_entries_plain(ent_k, cfg), stable=True)
     keys = ent_k[:, 0].to(torch.int64) & 0xFFFFFFFF
     live = keys != 0xFFFFFFFF
     keys_live, ent_live = keys[live], ent_k[live]
@@ -348,24 +416,28 @@ def phase_kernels(g1, cam1, g3, cam3, device) -> dict:
                    "library_ms": cuda_ms(
                        lambda: ent_live[torch.sort(keys_live, stable=True).indices], 5)}
     del keys_live, ent_live
-    log(f"phase 2 K2 entry sort: {e} entries, {n_live} live; keys bit-equal to torch.sort, "
-        f"payload multisets equal; kernel {rec['sort']['ms']:.3f} ms, plain "
+    log(f"phase 2 K2 entry sort: {e} entries, {n_live} live; row for row equal to the stable "
+        f"plain sort; kernel {rec['sort']['ms']:.3f} ms, plain "
         f"{rec['sort']['plain_ms']:.3f} ms, torch.sort + gather of the live entries "
         f"{rec['sort']['library_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    rec["sort"]["kernels"] = k2_kernel_report(lambda: sort_entries(ent_k, cfg), e, n_live,
+                                              cfg.n_tiles)
 
-    # K3.
+    # K3, Horner form, within rounding of its plain version.
     img_k = composite_tiles_v2(se_k, cfg)
     work = {}
     img_p = composite_tiles_plain_v2(se_k, cfg, stats=work)
     err = float((img_k - img_p).abs().max())
-    require(err <= K3_TOL, f"K3 max abs {err} > {K3_TOL}")
-    b_ms, b_by = bound(nbytes(se_k.entries, se_k.tile_starts, se_k.tile_counts, img_k),
+    require(err <= K67_TOL, f"K3 max abs {err} > {K67_TOL}")
+    # Bytes: the 128-entry chunks read before the tiles' exits, 16 B an entry.
+    b_ms, b_by = bound(work["rows"] * ROW * 16
+                       + nbytes(se_k.tile_starts, se_k.tile_counts, img_k),
                        K3_OPS_BLEND * work["pairs"])
     rec["composite"] = {"max_abs_err": err,
                         "ms": cuda_ms(lambda: composite_tiles_v2(se_k, cfg), 20),
                         "plain_ms": cuda_ms(lambda: composite_tiles_plain_v2(se_k, cfg), 1),
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    log(f"phase 2 K3 compositor: max abs {err:.3e} (<= {K3_TOL:.3e}) vs plain; kernel "
+    log(f"phase 2 K3 compositor (Horner): max abs {err:.3e} (<= {K67_TOL}) vs plain; kernel "
         f"{rec['composite']['ms']:.3f} ms, plain {rec['composite']['plain_ms']:.3f} ms, "
         f"{work['pairs']} blends needed, bound {b_ms:.3f} ms ({b_by})")
     del ent_k, se_k, img_k, img_p, pod
@@ -548,7 +620,9 @@ def phase_config1(g, cam, device, smi: str, rec: dict) -> dict:
     """Phase 4: BASELINE config 1 through Viewer.render."""
     import torch
 
-    from wgpu_3dgs_viewer_app_tpu_torch.ops import kernels
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import (build_sorted_entries_fused,
+                                                    composite_tiles_plain_v2, kernels,
+                                                    over_background)
     from wgpu_3dgs_viewer_app_tpu_torch.viewer import Viewer
 
     t0 = time.perf_counter()
@@ -568,15 +642,23 @@ def phase_config1(g, cam, device, smi: str, rec: dict) -> dict:
     ms = (time.perf_counter() - t1) * 1e3 / frames
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    for name in ("fused", "sort", "composite"):
-        require(launches[name] >= 1, f"kernel {name} never launched on the config-1 path: "
-                                     f"{launches}")
+    want = {**dict.fromkeys(launches, 0), "fused": 7, "sort": 7, "composite": 7}
+    require(launches == want, f"config-1 path, 7 frames: launched {launches}, expected {want}")
     coverage = check_frame(img, "config 1")
+    # The frame against the plain compositor on the frame's own sorted entries.
+    m = v.models["model"]
+    se = build_sorted_entries_fused(m.buffers.pod, v.comp, v.cfg, v._view, v._proj,
+                                    m.transform.matrix())
+    err = float((img - over_background(composite_tiles_plain_v2(se, v.cfg), v.background))
+                .abs().max())
+    require(err <= K67_TOL, f"config-1 frame vs the plain compositor: max abs {err}")
+    del se
     rest = ms - sum(rec[k]["ms"] for k in ("fused", "sort", "composite"))
     log(f"phase 4 config 1: {g.count} splats at 1920x1080, SH 3, norm8/half, tile 32, "
         f"max_dup 4: {ms:.3f} ms/frame over {frames} frames ({rest:.3f} ms outside the three "
         f"kernels' phase-2 times), peak {peak:.2f} GiB, coverage {coverage:.3f}, launches "
-        f"{launches}, viewer set-up {setup:.1f} s [{smi}]")
+        f"{launches}, against the plain compositor on its sorted entries max abs {err:.3e} "
+        f"(<= {K67_TOL}), viewer set-up {setup:.1f} s [{smi}]")
     return launches, img
 
 
@@ -618,7 +700,7 @@ def v1_frame(pod, comp, cfg, cam):
 
 def rows_frame(pod, comp, cfg, cam, mxu: bool = True):
     """The row-major v2 frame on one model: frame() -> (H, W, 3) over black,
-    K1 -> K2 -> `composite_tiles_v2(transposed=False, mxu=mxu)` (K7)."""
+    K1 -> K2 -> `composite_tiles_v2(transposed=False, mxu=mxu)` (K3)."""
     import numpy as np
 
     from wgpu_3dgs_viewer_app_tpu_torch.ops import (build_sorted_entries_fused,
@@ -636,17 +718,19 @@ def rows_frame(pod, comp, cfg, cam, mxu: bool = True):
 
 
 def phase_compositors(g1, cam1, v2_img, device, smi: str, rec: dict) -> dict:
-    """Phase 7: the v1 chain and the row-major v2 frame at config 1, K6 and
-    K7 against their plain versions (and K7 against K3), flat mode on the
-    config-0 shapes. Returns the launch counts of the two timed frames."""
+    """Phase 7: the v1 chain and the row-major v2 frame at config 1, K6, K2
+    at the v1 key and K3 in the quadratic-basis form against their plain
+    versions, flat mode on the config-0 shapes. Returns the launch counts of
+    the two timed frames."""
     import numpy as np
     import torch
 
     from wgpu_3dgs_viewer_app_tpu_torch.ops import (
         N_PLANES, TileConfig, build_entry_planes, build_sorted_entries_fused, build_tile_lists,
         composite_tiles, composite_tiles_plain, composite_tiles_plain_v2, composite_tiles_v2,
-        preprocess)
-    from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import ROW
+        preprocess, sort_entries, sort_entries_plain)
+    from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import ROW, tile_list_entries
+    from wgpu_3dgs_viewer_app_tpu_torch.testing import compare_sorted
 
     w, h = 1920, 1080
     comp, pod = pod_tensors(g1, device)
@@ -686,6 +770,13 @@ def phase_compositors(g1, cam1, v2_img, device, smi: str, rec: dict) -> dict:
         return result
 
     pre = stage("preprocess", lambda: preprocess(pod, comp, view, proj, eye, w, h))
+    # K2 at the v1 key layout, row for row against the stable plain sort.
+    slots = tile_list_entries(pre, cfg)
+    se1 = sort_entries(slots, cfg, shift=cfg.depth_bits)
+    compare_sorted(se1, sort_entries_plain(slots, cfg, shift=cfg.depth_bits), stable=True)
+    log(f"phase 7 K2 at the v1 key ({slots.shape[0]} slots, {se1.n_valid} live): row for row "
+        f"equal to the stable plain sort")
+    del slots, se1
     lists = stage("build_tile_lists", lambda: build_tile_lists(pre, cfg))
     planes = stage("build_entry_planes", lambda: build_entry_planes(pre, lists, cfg))
     del pre, lists
@@ -714,61 +805,51 @@ def phase_compositors(g1, cam1, v2_img, device, smi: str, rec: dict) -> dict:
         f"{work['pairs']} blends needed, bound {b_ms:.3f} ms ({b_by})")
     del planes, got
 
-    # K7 on phase 4's sorted entries (K1 -> K2 at config 1): Horner and
-    # quadratic basis against plain, and against K3.
+    # K3 on phase 4's sorted entries (K1 -> K2 at config 1) in the
+    # quadratic-basis form against plain, for both `transposed` values, and
+    # against the Horner form on the card.
     se = build_sorted_entries_fused(pod, comp, cfg, view, proj, eye)
-    rows = {}
-    for mxu in (False, True):
-        got = composite_tiles_v2(se, cfg, transposed=False, mxu=mxu)
-        work = {}
-        ref = composite_tiles_plain_v2(se, cfg, stats=work, mxu=mxu)
-        rows[mxu] = (got, float((got - ref).abs().max()), work["pairs"], work["rows"])
-        require(rows[mxu][1] <= K67_TOL, f"K7 (mxu={mxu}) max abs {rows[mxu][1]} > {K67_TOL}")
-    k3_err = float((rows[False][0] - composite_tiles_v2(se, cfg)).abs().max())
-    require(k3_err <= K3_TOL, f"K7 vs K3 max abs {k3_err} > {K3_TOL}")
-    form = float((rows[True][0] - rows[False][0]).abs().max())
-    # Bytes: the 128-entry chunks read before the tiles' exits, 16 B an entry.
-    io = nbytes(se.tile_starts, se.tile_counts, rows[False][0])
-    b_ms, b_by = bound(rows[False][3] * ROW * 16 + io, K7_OPS_BLEND * rows[False][2])
-    bm_ms, _ = bound(rows[True][3] * ROW * 16 + io, K7_MXU_OPS_BLEND * rows[True][2])
-    rec_rows = {
-        "max_abs_err": max(rows[False][1], rows[True][1]),
-        "ms": cuda_ms(lambda: composite_tiles_v2(se, cfg, transposed=False), 20),
-        "plain_ms": cuda_ms(lambda: composite_tiles_plain_v2(se, cfg), 1),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "mxu_ms": cuda_ms(lambda: composite_tiles_v2(se, cfg, mxu=True), 20),
-        "mxu_plain_ms": cuda_ms(lambda: composite_tiles_plain_v2(se, cfg, mxu=True), 1),
-        "mxu_bound_ms": bm_ms, "mxu_max_abs_err": rows[True][1], "vs_k3_max": k3_err,
-        "mxu_vs_horner_max": form, "k3_ms": cuda_ms(lambda: composite_tiles_v2(se, cfg), 20)}
-    log(f"phase 7 K7 row-major compositor on phase 4's sorted entries ({se.n_valid} live): "
-        f"Horner max abs {rows[False][1]:.3e}, quadratic basis {rows[True][1]:.3e} (<= "
-        f"{K67_TOL}) vs plain; vs K3 {k3_err:.3e} (<= {K3_TOL:.3e}); quadratic basis vs Horner "
-        f"on the card {form:.3e}; kernel {rec_rows['ms']:.3f} ms (Horner), "
-        f"{rec_rows['mxu_ms']:.3f} ms (mxu), K3 {rec_rows['k3_ms']:.3f} ms in the same run; plain "
-        f"{rec_rows['plain_ms']:.3f} / {rec_rows['mxu_plain_ms']:.3f} ms; {rows[False][2]} blends "
-        f"needed, bound {b_ms:.3f} ms ({b_by}) / {bm_ms:.3f} ms (mxu)")
-    del se, rows
+    horner = composite_tiles_v2(se, cfg)
+    work = {}
+    ref = composite_tiles_plain_v2(se, cfg, stats=work, mxu=True)
+    basis = composite_tiles_v2(se, cfg, transposed=False, mxu=True)
+    err = float((basis - ref).abs().max())
+    require(err <= K67_TOL, f"K3 (quadratic basis) max abs {err} > {K67_TOL}")
+    require(torch.equal(basis, composite_tiles_v2(se, cfg, transposed=True, mxu=True)),
+            "K3 (quadratic basis): transposed=True differs from transposed=False")
+    form = float((basis - horner).abs().max())
+    bm_ms, bm_by = bound(work["rows"] * ROW * 16 + nbytes(se.tile_starts, se.tile_counts, basis),
+                         K3_MXU_OPS_BLEND * work["pairs"])
+    rec3 = rec["composite"]
+    rec3["max_abs_err"] = max(rec3["max_abs_err"], err)
+    rec3.update({"mxu_ms": cuda_ms(lambda: composite_tiles_v2(se, cfg, mxu=True), 20),
+                 "mxu_plain_ms": cuda_ms(lambda: composite_tiles_plain_v2(se, cfg, mxu=True), 1),
+                 "mxu_bound_ms": bm_ms, "mxu_max_abs_err": err, "mxu_vs_horner_max": form})
+    log(f"phase 7 K3 quadratic-basis form on phase 4's sorted entries ({se.n_valid} live): max "
+        f"abs {err:.3e} (<= {K67_TOL}) vs plain, transposed False and True equal; basis vs "
+        f"Horner on the card {form:.3e}; kernel {rec3['mxu_ms']:.3f} ms (Horner "
+        f"{rec3['ms']:.3f} ms in phase 2), plain {rec3['mxu_plain_ms']:.3f} ms; {work['pairs']} "
+        f"blends needed, bound {bm_ms:.3f} ms ({bm_by})")
+    del se, horner, ref, basis
 
     # The row-major frame at config 1 (the mxu mode's path).
     ms, img, peak, launches = timed_frames(rows_frame(pod, comp, cfg, cam1))
-    for name in ("fused", "sort", "composite_rows"):
-        require(launches[name] >= 1, f"kernel {name} never launched on the row-major path: "
-                                     f"{launches}")
-    require(launches["composite"] == 0, f"row-major path launched K3: {launches}")
+    want = {**dict.fromkeys(launches, 0), "fused": 7, "sort": 7, "composite": 7}
+    require(launches == want, f"row-major path, 7 frames: launched {launches}, expected {want}")
     coverage = check_frame(img, "row-major config 1")
     d = (img - v2_img).abs()
-    out["composite_rows"] = launches
-    rec_rows.update({"config1_rows_frame_ms": ms, "config1_rows_frame_peak_gib": peak,
-                     "config1_rows_vs_v2_frame_max": float(d.max()),
-                     "config1_rows_vs_v2_frame_mean": float(d.mean())})
+    out["rows"] = launches
+    rec3.update({"config1_rows_frame_ms": ms, "config1_rows_frame_peak_gib": peak,
+                 "config1_rows_vs_v2_frame_max": float(d.max()),
+                 "config1_rows_vs_v2_frame_mean": float(d.mean())})
     log(f"phase 7 row-major frame, config 1: K1 -> K2 -> composite_tiles_v2(transposed=False, "
-        f"mxu=True) (K7): {ms:.3f} ms/frame over 5 frames, peak {peak:.2f} GiB, coverage "
+        f"mxu=True) (K3, basis): {ms:.3f} ms/frame over 5 frames, peak {peak:.2f} GiB, coverage "
         f"{coverage:.3f}, launches {launches}; against phase 4's frame (K3, Horner) max "
         f"{float(d.max()):.4e}, mean {float(d.mean()):.4e} (reported; the kernels are gated "
         f"above) [{smi}]")
     del img, d, pod
 
-    # Flat mode on the config-0 shapes: K6 and K7 against plain.
+    # Flat mode on the config-0 shapes: K6 and K3 (both `transposed`) against plain.
     g0, cam0 = config0_scene()
     comp0, pod0 = pod_tensors(g0, device)
     cfg0 = TileConfig(800, 600, tile=32, max_dup=4)
@@ -778,22 +859,22 @@ def phase_compositors(g1, cam1, v2_img, device, smi: str, rec: dict) -> dict:
     cov6 = float((got[..., 3] > 1.0 / 255.0).float().mean())
     se0 = build_sorted_entries_fused(pod0, comp0, cfg0, cam0.view(), cam0.projection(800 / 600),
                                      eye, sh_degree=0, display_mode=2)
-    got = composite_tiles_v2(se0, cfg0, flat_mode=True, transposed=False)
-    err7 = float((got - composite_tiles_plain_v2(se0, cfg0, flat_mode=True)).abs().max())
-    require(err6 <= K67_TOL and err7 <= K67_TOL, f"flat config 0: K6 {err6}, K7 {err7}")
+    ref = composite_tiles_plain_v2(se0, cfg0, flat_mode=True)
+    err3 = max(float((composite_tiles_v2(se0, cfg0, flat_mode=True, transposed=tr, mxu=tr)
+                      - ref).abs().max()) for tr in (False, True))
+    require(err6 <= K67_TOL and err3 <= K67_TOL, f"flat config 0: K6 {err6}, K3 {err3}")
     require(cov6 > 0.01, f"config 0 point frame covers {cov6}")
     rec_v1["max_abs_err"] = max(rec_v1["max_abs_err"], err6)
     rec_v1["config0_flat_max_abs_err"] = err6
     rec_v1["config0_flat_ms"] = cuda_ms(lambda: composite_tiles(planes0, cfg0, flat_mode=True), 20)
-    rec_rows["max_abs_err"] = max(rec_rows["max_abs_err"], err7)
-    rec_rows["config0_flat_max_abs_err"] = err7
-    rec_rows["config0_flat_ms"] = cuda_ms(
-        lambda: composite_tiles_v2(se0, cfg0, flat_mode=True, transposed=False), 20)
+    rec3["max_abs_err"] = max(rec3["max_abs_err"], err3)
+    rec3["config0_flat_max_abs_err"] = err3
+    rec3["config0_flat_ms"] = cuda_ms(lambda: composite_tiles_v2(se0, cfg0, flat_mode=True), 20)
     log(f"phase 7 flat mode, config-0 shapes ({g0.count} splats, 800x600, point, SH 0; "
         f"{se0.n_valid} live entries, coverage {cov6:.3f}): K6 max abs {err6:.3e}, "
-        f"{rec_v1['config0_flat_ms']:.4f} ms; K7 max abs {err7:.3e}, "
-        f"{rec_rows['config0_flat_ms']:.4f} ms (<= {K67_TOL} vs plain)")
-    rec["composite_v1"], rec["composite_rows"] = rec_v1, rec_rows
+        f"{rec_v1['config0_flat_ms']:.4f} ms; K3 max abs {err3:.3e} (transposed False and True, "
+        f"mxu ignored in flat mode), {rec3['config0_flat_ms']:.4f} ms (<= {K67_TOL} vs plain)")
+    rec["composite_v1"] = rec_v1
     return out
 
 
@@ -1038,6 +1119,7 @@ def phase_config2(models: list, device, smi: str, rec: dict) -> dict:
     from wgpu_3dgs_viewer_app_tpu_torch.ops import (composite_tiles_plain_v2, composite_tiles_v2,
                                                     kernels, over_background, preprocess,
                                                     sort_entries, sort_entries_plain)
+    from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import ROW
     from wgpu_3dgs_viewer_app_tpu_torch.testing import compare_sorted
 
     w, h = CONFIG2_SIZE
@@ -1091,10 +1173,10 @@ def phase_config2(models: list, device, smi: str, rec: dict) -> dict:
     require(cfg_chk == cfg_m and entries.shape[0] == 3 * models[0].count * cfg_m.max_dup,
             f"merged entries {tuple(entries.shape)} under {cfg_chk}")
     se = sort_entries(entries, cfg_m)
-    # K2 against its plain version at this shape: whole keys (rank and alpha
-    # byte included) bit-equal and ascending, the payloads still with their
-    # keys, the live entries a permutation of the input's, equal tile ranges.
-    compare_sorted(se, sort_entries_plain(entries, cfg_m))
+    # K2 against its plain version at this shape, row for row: whole keys
+    # (rank and alpha byte included) and payloads, ties in slot order, equal
+    # tile ranges.
+    compare_sorted(se, sort_entries_plain(entries, cfg_m), stable=True)
     rec["sort"]["config2_merged_max_abs_err"] = 0
     keys = se.entries[:, 0].to(torch.int64) & 0xFFFFFFFF
     tile = keys >> cfg_m._tile_shift
@@ -1111,15 +1193,22 @@ def phase_config2(models: list, device, smi: str, rec: dict) -> dict:
             "tile ranges do not match the keys' tile field")
     per_rank = torch.bincount(rank, minlength=n_models).tolist()
     require(all(c > 0 for c in per_rank[:n_models]), f"entries per rank {per_rank}")
-    # K3 under the merged config against its plain version.
+    # K3 under the merged config against its plain version, and its bound
+    # on these entries.
     img_k = composite_tiles_v2(se, cfg_m)
-    err = float((img_k - composite_tiles_plain_v2(se, cfg_m)).abs().max())
-    require(err <= K3_TOL, f"K3 on the merged entries: max abs {err} > {K3_TOL}")
+    work = {}
+    err = float((img_k - composite_tiles_plain_v2(se, cfg_m, stats=work)).abs().max())
+    require(err <= K67_TOL, f"K3 on the merged entries: max abs {err} > {K67_TOL}")
+    b2_ms, b2_by = bound(work["rows"] * ROW * 16 + nbytes(se.tile_starts, se.tile_counts, img_k),
+                         K3_OPS_BLEND * work["pairs"])
     rec["composite"]["max_abs_err"] = max(rec["composite"]["max_abs_err"], err)
+    rec["composite"].update({"config2_ms": cuda_ms(lambda: composite_tiles_v2(se, cfg_m), 20),
+                             "config2_bound_ms": b2_ms, "config2_blends": work["pairs"]})
     log(f"phase 6 merged entries: {entries.shape[0]} slots, {se.n_valid} live, per rank "
-        f"{per_rank[:n_models]}; K2 vs plain on them: keys bit-equal, payload multisets and tile "
-        f"ranges equal; in K2's output tiles ascend, ranks ascend per tile, depth keys ascend "
-        f"per rank, tile ranges match; K3 vs plain on them max abs {err:.3e}")
+        f"{per_rank[:n_models]}; K2 vs plain on them: row for row equal; in K2's output tiles "
+        f"ascend, ranks ascend per tile, depth keys ascend per rank, tile ranges match; K3 vs "
+        f"plain on them max abs {err:.3e} (<= {K67_TOL}), {rec['composite']['config2_ms']:.3f} "
+        f"ms, {work['pairs']} blends needed, bound {b2_ms:.3f} ms ({b2_by})")
     del entries, se, keys, tile, rank, depth, owner, same_tile, same_rank, img_k
 
     # Merged = the per-model frames blended back to front with "over".
@@ -1143,7 +1232,7 @@ def phase_config2(models: list, device, smi: str, rec: dict) -> dict:
     # Alone, a model's batches end where its own transmittance falls under
     # 1/255; merged, where the product of all nearer models' does: each of
     # the four images may lack up to 1/255.
-    require(float(d_layout.max()) <= (n_models + 1) * K3_TOL,
+    require(float(d_layout.max()) <= (n_models + 1) * EXIT_TOL,
             "merged frame differs from the blend of its models under the same key layout")
     # Against `render_model` the difference is the two depth bits the rank
     # takes (splats that tie in depth blend in alpha order), not the merge.
@@ -1295,7 +1384,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches7 = phase_compositors(g1, cam1, v2_img, device, smi, rec)
     launches["composite_v1"] = launches7["composite_v1"]["composite_v1"]
-    launches["composite_rows"] = launches7["composite_rows"]["composite_rows"]
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -1303,13 +1391,13 @@ def main() -> int:
         require(launches[name] >= 1, f"kernel {name} never launched on its path: {launches}")
         # `launches`: on the path that is the kernel's main one (config 1 for
         # K1-K3, config 3 for K4, the staged config 2 for K5, phase 7's v1
-        # frame for K6 and its row-major frame for K7).
+        # frame for K6).
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": launches[name],
                     "launches_config2_fused": launches2["fused"][name],
                     "launches_config2_staged": launches2["staged"][name],
                     "launches_v1_frame": launches7["composite_v1"][name],
-                    "launches_rows_frame": launches7["composite_rows"][name], **r})
+                    "launches_rows_frame": launches7["rows"][name], **r})
     require(all(math.isfinite(k["ms"]) and math.isfinite(k["bound_ms"]) for k in out),
             f"non-finite time in {out}")
     print(json.dumps({"kernels": out}))

@@ -7,7 +7,8 @@ few frames of a BASELINE cell, device time per kernel and the idle share.
     python3 scripts/profile_port_frame.py --config 2 --route fused    # 3 x 1M, merged frame
     python3 scripts/profile_port_frame.py --config 2 --route staged
     python3 scripts/profile_port_frame.py --config 1 --route v1     # the v1 chain, K6
-    python3 scripts/profile_port_frame.py --config 1 --route rows   # row-major v2, K7
+    python3 scripts/profile_port_frame.py --config 1 --route rows   # row-major v2, K3 basis
+    python3 scripts/profile_port_frame.py --config 1 --tiles  # + K3 tile by tile
 
 Config 1 is the plain orbit frame; config 3 is the selection-and-editing
 step that `chip_smoke.py` phase 5 times (`chip_smoke.config3_step`: query
@@ -18,11 +19,16 @@ front-end route (K1 per model) or the staged one (plain preprocess + K5 per
 model). Config 1 also runs on the two routes of `chip_smoke.py` phase 7: the
 v1 chain (plain preprocess -> build_tile_lists -> build_entry_planes ->
 composite_tiles, `chip_smoke.v1_frame`) and the row-major v2 frame (K1 ->
-K2 -> composite_tiles_v2(transposed=False, mxu=True), `chip_smoke.rows_frame`).
+K2 -> composite_tiles_v2(transposed=False, mxu=True), the one v2 compositor K3
+in its quadratic-basis form, `chip_smoke.rows_frame`).
 All at SH 3, norm8 SH + half cov3d, tile 32, max_dup 4. Prints one line
 per kernel (ms per frame, share of device time), the device's busy and
 wall time over the profiled frames, and the card's name and power limit.
-Needs a CUDA device.
+With --tiles (config 1 and config 2 fused), also what bounds the v2
+compositor's span: the frame's sorted entries composited whole and with
+each tile alone (the other tiles' counts set to 0), and the chunks the
+slowest tiles walk before their exits (from the plain version). Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -35,6 +41,64 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+
+
+def sorted_frame(entries, cfg) -> tuple:
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import sort_entries
+
+    return sort_entries(entries, cfg), cfg
+
+
+def config1_sorted(g, cam) -> tuple:
+    """The config-1 frame's sorted entries, as `Viewer.render` makes them."""
+    import numpy as np
+
+    import chip_smoke
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import TileConfig, enumerate_entries_fused
+
+    comp, pod = chip_smoke.pod_tensors(g, "cuda")
+    cfg = TileConfig(1920, 1080, tile=32, max_dup=4)
+    proj = cam.projection(1920 / 1080)
+    return sorted_frame(enumerate_entries_fused(pod, comp, cfg, cam.view(), proj,
+                                                np.eye(4, dtype=np.float32)), cfg)
+
+
+def tile_walk(se, cfg, top: int = 6) -> str:
+    """The v2 compositor (Horner, the viewer's call) on the whole frame and on
+    each tile alone; a tile alone takes its time less that of a launch with
+    every count 0 (mean of 3 calls by CUDA events, so below the host's
+    launch time it reads ~0)."""
+    import dataclasses
+
+    import chip_smoke
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import composite_tiles_plain_v2, composite_tiles_v2
+
+    def ms(s, reps):
+        return chip_smoke.cuda_ms(lambda: composite_tiles_v2(s, cfg), reps)
+
+    zero = dataclasses.replace(se, tile_counts=se.tile_counts.new_zeros(se.tile_counts.shape))
+    whole, empty = ms(se, 20), ms(zero, 20)
+    alone = []
+    for t in range(cfg.n_tiles):
+        counts = zero.tile_counts.clone()
+        counts[t] = se.tile_counts[t]
+        alone.append(ms(dataclasses.replace(se, tile_counts=counts), 3) - empty)
+    work = {}
+    composite_tiles_plain_v2(se, cfg, stats=work)
+    order = sorted(range(cfg.n_tiles), key=lambda t: -alone[t])
+    slow = []
+    for t in order[:top]:
+        one = {}
+        counts = zero.tile_counts.clone()
+        counts[t] = se.tile_counts[t]
+        composite_tiles_plain_v2(dataclasses.replace(se, tile_counts=counts), cfg, stats=one)
+        slow.append(f"tile {t}: {alone[t] * 1e3:.1f} us, {one['rows']} chunks walked, "
+                    f"{int(se.tile_counts[t])} entries")
+    med = sorted(alone)[cfg.n_tiles // 2]
+    return (f"K3 tile walk: whole {whole * 1e3:.1f} us, empty launch {empty * 1e3:.1f} us; "
+            f"a tile alone: median {med * 1e3:.1f} us, slowest: {'; '.join(slow)}; chunks "
+            f"walked per tile: mean {work['rows'] / cfg.n_tiles:.2f} ({work['rows']} chunks, "
+            f"{cfg.n_tiles} tiles)")
 
 
 def main() -> int:
@@ -52,10 +116,14 @@ def main() -> int:
                     help="config 2: front-end route (fused, staged); config 1: v1 or rows for "
                          "phase 7's frames")
     ap.add_argument("--frames", type=int, default=5)
+    ap.add_argument("--tiles", action="store_true",
+                    help="config 1 or config 2 fused: also time the compositor tile by tile")
     args = ap.parse_args()
     if args.route not in {1: ("fused", "v1", "rows"), 2: ("fused", "staged"), 3: ("fused",)}[
             args.config]:
         ap.error(f"--route {args.route} does not apply to --config {args.config}")
+    if args.tiles and (args.config == 3 or args.route != "fused"):
+        ap.error("--tiles applies to --config 1 or 2 on the fused route")
     if not torch.cuda.is_available():
         print("profile_port_frame: no CUDA device", file=sys.stderr)
         return 1
@@ -65,8 +133,9 @@ def main() -> int:
     if args.config == 2:
         models = chip_smoke.config2_models()
         n_splats, what = sum(g.count for g in models), f"config 2 ({args.route} route)"
-        step = chip_smoke.config2_frame(chip_smoke.config2_viewer(models, "cuda"),
-                                        args.route == "fused")
+        v = chip_smoke.config2_viewer(models, "cuda")
+        step = chip_smoke.config2_frame(v, args.route == "fused")
+        sorted_entries = lambda: sorted_frame(*v.merged_entries(v.model_order()))
     elif args.config == 1 and args.route in ("v1", "rows"):
         g, cam = chip_smoke.config1_scene()
         n_splats, what = g.count, f"config 1 ({args.route} route)"
@@ -80,6 +149,7 @@ def main() -> int:
         v = Viewer(g, 1920, 1080, tile=32, max_dup=4, device="cuda")
         v.update_camera(cam)
         step = v.render if args.config == 1 else chip_smoke.config3_step(v)
+        sorted_entries = lambda: config1_sorted(g, cam)
 
     for _ in range(2):
         step()
@@ -103,6 +173,8 @@ def main() -> int:
     for name, ms, count in sorted(rows, key=lambda r: -r[1]):
         print(f"  {ms / args.frames:8.3f} ms/frame  {ms / busy:6.1%}  x{count // args.frames:<3d} "
               f"{name[:90]}")
+    if args.tiles:
+        print(tile_walk(*sorted_entries()), flush=True)
     print(smi)
     return 0
 

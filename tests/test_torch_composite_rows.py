@@ -1,8 +1,9 @@
-"""The row-major mode of the port's v2 compositor (plain version of kernel
-K7) against the JAX Pallas kernel `_composite_kernel_v2` in interpret mode
+"""The row-major mode of the port's v2 compositor (the plain version of
+kernel K3, which serves every `transposed` and `mxu`) against the JAX Pallas
+kernel `_composite_kernel_v2` in interpret mode
 (`composite_tiles_pallas_v2(transposed=False)`), with the Horner and the
 quadratic-basis (`mxu=True`) exponent, in splat and flat mode; and that a
-CPU call reaches the plain version whichever kernel it names."""
+CPU call reaches the plain version whichever flags it passes."""
 
 import jax.numpy as jnp
 import numpy as np

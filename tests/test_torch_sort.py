@@ -70,3 +70,22 @@ def test_sort_plain_edge_cases(e, frac):
     for t in np.unique(ref[:, 0] >> CFG._tile_shift)[:50]:
         run = ref[starts[t]:starts[t] + counts[t], 0] >> CFG._tile_shift
         assert (run == t).all()
+
+
+def test_compare_sorted_stable_rejects_swapped_tie():
+    """`compare_sorted(stable=True)` accepts two stable sorts of the same
+    slots and rejects one whose tied entries swapped rows, which the
+    multiset check lets through."""
+    ent = _as_tensor(_entries(4000, 0.25, seed=5, n_tiles=2))  # ~3000 live on 2048 keys
+    a, b = sort_entries_plain(ent, CFG), sort_entries_plain(ent.clone(), CFG)
+    compare_sorted(a, b, stable=True)
+    keys = a.entries[:, 0]
+    tie = int(torch.nonzero(keys[1:] == keys[:-1])[0, 0])
+    swapped = a.entries.clone()
+    swapped[[tie, tie + 1]] = swapped[[tie + 1, tie]]
+    assert not torch.equal(swapped, a.entries)
+    c = SortedEntries(entries=swapped, tile_starts=a.tile_starts, tile_counts=a.tile_counts,
+                      n_valid=a.n_valid)
+    compare_sorted(a, c)
+    with pytest.raises(AssertionError, match="rows differ"):
+        compare_sorted(a, c, stable=True)

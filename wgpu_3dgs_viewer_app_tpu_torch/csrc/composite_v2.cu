@@ -1,0 +1,287 @@
+// K3 - the v2 tile compositor: key-sorted packed entries -> premultiplied
+// RGBA, with the reference's exact 128-entry chunks.
+//
+// Replaces both Pallas kernels of `composite_tiles_pallas_v2`:
+// `wgpu_3dgs_viewer_app_tpu/ops/composite.py::_composite_kernel_v2` (:489,
+// row-major) and `_composite_kernel_v2t` (:639, transposed). They compute
+// one function and differ only in a TPU lane layout, so every combination
+// of `transposed` and `mxu` launches this kernel. A tile's run is walked in
+// the reference's chunks: chunk c is global entry row start / 128 + c, and
+// entries of that row outside the tile's run [start, start + count) are
+// dead (opacity 0). Before each chunk the block stops if no pixel of the
+// tile has T > 1/255 (__syncthreads_or), the reference's own test. Inside a
+// chunk each pixel forms w = excl * alpha and sums w * (r, g, b); after it,
+// acc += T * sums and T *= the chunk's product of (1 - alpha). The exponent
+// is in log2 units, alpha = op * 2^min(power2, 0) (splat) or the flat
+// opacity inside power2 >= -2 log2(e) (ellipse/point); alpha below 1/255 is
+// dropped. Two forms of power2, as the plain version evaluates them:
+//   Horner (default): (a2 dx + b2 dy) dx + (c2 dy) dy on pre-scaled rows;
+//   quadratic basis (mxu, splat mode only): F = [px^2, py^2, px py, px, py, 1]
+//   dotted with the entry's G row, with explicit fmaf where the reference's
+//   CPU build fuses (it cancels terms of ~1e4, so each rounding shows);
+//   nothing else is contracted (--fmad=false).
+//
+// What bounds it on an H100: operations, 22 a (pixel, entry) blend in the
+// Horner form and 24 in the basis form, plus one exp2; bytes are small (16
+// B an entry, read once per tile). In practice its span is the chunk walk
+// of its slowest single tiles (the densest one, or sparse tiles that never
+// saturate and walk 12-26 chunks one after another) while most tiles exit
+// after 1-3 (scripts/profile_port_frame.py --tiles). The
+// design cuts the instructions of each chunk and leaves the image bit for
+// bit as the straight loop makes it:
+//   - one block per tile of tile * ceil(tile / 4) threads, each thread on 4
+//     consecutive pixels of one row: the entry's shared loads, dy, b2 dy and
+//     (c2 dy) dy are paid once per 4 blends (the same operations in the
+//     same order, so the rounding is the plain version's);
+//   - each chunk is decoded once into packed shared rows, with each entry's
+//     box: the pixels where power2 can reach the alpha floor, widened far
+//     beyond the rounding (box_radii). A thread whose 4 pixels lie outside
+//     reads one 16-byte row and moves on; the others read two more (three
+//     in the basis form);
+//   - below a per-entry power2 threshold alpha is under the floor for
+//     certain, and the exp2 is skipped; the exp2 itself is MUFU.EX2 alone;
+//   - the Horner loop takes two entries a step (their exponents overlap);
+//   - the next chunk's raw entries are copied in with cp.async into a
+//     second buffer while the current chunk blends;
+//   - only the live span of a chunk is walked (a tile's first and last
+//     chunks hold entries of its neighbours);
+//   - <= 64 registers a thread, so that four 256-thread blocks share an SM;
+//   - each thread stores its 4 pixels as one 64-byte run.
+#include <cmath>
+
+#include "common.cuh"
+
+namespace {
+
+// Entries per step of the Horner and flat blend loops (the basis form, at
+// the register limit, takes one at a time).
+constexpr int kUnroll = 2;
+constexpr int kPx = 4;          // consecutive pixels of a row per thread
+constexpr int kMinBlocks = 4;   // resident blocks an SM at 256 threads: <= 64 registers
+// Margins (log2 units) of the box and of the exp2f skip below the alpha
+// floor's power2, far wider than the rounding of power2 and exp2f.
+constexpr float kBoxMargin = 1.0f;
+constexpr float kSkipMargin = 1.0f / 64.0f;
+constexpr int kRow = 128;
+constexpr int kMaxThreads = 1024 / kPx;  // tile 32: 32 rows x 8 groups of 4 pixels
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kAlphaEps = 1.0f / 255.0f;
+constexpr float kTEps = 1.0f / 255.0f;
+
+enum Mode { kHorner = 0, kFlat = 1, kBasis = 2 };
+
+// 2^x: exp2f's own MUFU.EX2 without its subnormal range handling. Where
+// the result is normal (x >= -126) the two agree bit for bit; below, both
+// are far under the alpha floor, so alpha is dropped either way.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Half-widths (pixels) of the box around the region where the quadratic
+// a2 dx^2 + b2 dx dy + c2 dy^2 reaches `level` (< 0), widened by 0.1% and
+// 0.01 px; unbounded unless the form is negative definite with a condition
+// number under ~2000, which keeps the rounding of power2 far inside the
+// margin. In double: the f32 products are exact there.
+__device__ __forceinline__ void box_radii(float a2, float b2, float c2, float level, float* rx,
+                                          float* ry) {
+  const double a = a2, b = b2, c = c2, det = 4.0 * a * c - b * b;
+  if (a < 0.0 && c < 0.0 && det > 4e-3 * (a + c) * (a + c) && level < 0.0f) {
+    *rx = (float)(sqrt(level * 4.0 * c / det) * 1.001 + 0.01);
+    *ry = (float)(sqrt(level * 4.0 * a / det) * 1.001 + 0.01);
+  }
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+composite_v2_kernel(const uint4* __restrict__ entries, const int* __restrict__ starts,
+                    const int* __restrict__ counts, int tile, int tiles_x, int width,
+                    int height, float* __restrict__ out) {
+  __shared__ uint4 s_raw[2][kRow];
+  // box = (mx, my, rx, ry); Horner and flat: a = (a2, b2, c2, op), b = (r, g,
+  // b, thr); quadratic basis: a = (G0, G1, G2, G3), b = (G4, G5, op, thr),
+  // c = (r, g, b, -).
+  __shared__ float4 s_box[kRow], s_a[kRow], s_b[kRow], s_c[kMode == kBasis ? kRow : 1];
+
+  const int t = blockIdx.x;
+  const int groups = (tile + kPx - 1) / kPx;  // pixel groups per tile row
+  const int lx0 = (int)threadIdx.x % groups * kPx, ly = (int)threadIdx.x / groups;
+  const float py = (float)ly + 0.5f;  // tile-local
+  const float f1 = py * py;
+  float px[kPx], T[kPx], acc_r[kPx], acc_g[kPx], acc_b[kPx];
+#pragma unroll
+  for (int i = 0; i < kPx; ++i) {
+    px[i] = (float)(lx0 + i) + 0.5f;
+    // A group's pixels past the tile's edge (tile not a multiple of kPx) start
+    // at T = 0: they neither hold the block up nor get stored.
+    T[i] = lx0 + i < tile ? 1.0f : 0.0f;
+    acc_r[i] = acc_g[i] = acc_b[i] = 0.0f;
+  }
+  const int start = starts[t], count = counts[t];
+  const long long end = (long long)start + count;
+  const long long row0 = start / kRow;
+  const int n_chunks = count > 0 ? (int)((end + kRow - 1) / kRow - row0) : 0;
+  const float l2 = kLog2e;
+  const float h = -0.5f * kLog2e;
+  const float cut = -2.0f * kLog2e;
+
+  // Copy the live entries of chunk c into s_raw[buf].
+  auto prefetch = [&](int c, int buf) {
+    const long long base = (row0 + c) * kRow;
+    for (int j = threadIdx.x; j < kRow; j += blockDim.x) {
+      const long long g = base + j;
+      if (g >= start && g < end) cp_async16(&s_raw[buf][j], entries + g);
+    }
+  };
+
+  if (n_chunks > 0) prefetch(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < n_chunks; ++c) {
+    bool open = false;
+#pragma unroll
+    for (int i = 0; i < kPx; ++i) open = open || T[i] > kTEps;
+    if (!__syncthreads_or(open)) break;
+    if (c + 1 < n_chunks) prefetch(c + 1, (c + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // chunk c's copies have landed (this thread's)
+    __syncthreads();     // ... and every thread's
+
+    const long long base = (row0 + c) * kRow;
+    const int lo = (int)(start > base ? start - base : 0);
+    const int hi = (int)(end - base < kRow ? end - base : kRow);
+    for (int j = lo + (int)threadIdx.x; j < hi; j += blockDim.x) {
+      const uint4 e = s_raw[c & 1][j];
+      const float op = gs_u8_unit(e.x, 0);
+      const float mx = (float)(e.y & 0xFFFu) * (1.0f / 16.0f) - 128.0f;
+      const float my = (float)((e.y >> 12) & 0xFFFu) * (1.0f / 16.0f) - 128.0f;
+      const float ca = gs_f16_bits_to_f32(e.z & 0xFFFFu);
+      const float cb = gs_f16_bits_to_f32(e.z >> 16);
+      const float cc = gs_f16_bits_to_f32(e.w & 0xFFFFu);
+      const float r = gs_u8_unit(e.w, 16), g = gs_u8_unit(e.w, 24), b = gs_u8_unit(e.y, 24);
+      const float a2 = ca * h, b2 = cb * -l2, c2 = cc * h;
+      // power2 at which alpha reaches the floor, and the box around it.
+      const float level = kMode == kFlat ? cut : log2f(kAlphaEps / op);
+      float rx = INFINITY, ry = INFINITY;
+      if (!(op >= kAlphaEps)) rx = ry = -1.0f;  // never blends
+      else box_radii(a2, b2, c2, level - kBoxMargin, &rx, &ry);
+      const float thr = level - kSkipMargin;
+      s_box[j] = make_float4(mx, my, rx, ry);
+      if (kMode == kBasis) {
+        s_a[j] = make_float4(a2, c2, b2, l2 * fmaf(ca, mx, cb * my));
+        s_b[j] = make_float4(l2 * fmaf(cc, my, cb * mx),
+                             -l2 * fmaf(cb * mx, my, 0.5f * fmaf(ca * mx, mx, (cc * my) * my)),
+                             op, thr);
+        s_c[j] = make_float4(r, g, b, 0.0f);
+      } else {
+        s_a[j] = make_float4(a2, b2, c2, op);
+        s_b[j] = make_float4(r, g, b, thr);
+      }
+    }
+    __syncthreads();
+
+    float excl[kPx], sr[kPx], sg[kPx], sb[kPx];
+#pragma unroll
+    for (int i = 0; i < kPx; ++i) {
+      excl[i] = 1.0f;
+      sr[i] = sg[i] = sb[i] = 0.0f;
+    }
+#pragma unroll (kMode == kBasis ? 1 : kUnroll)
+    for (int k = lo; k < hi; ++k) {
+      // Entries whose box misses all of the thread's pixels add nothing to them.
+      const float4 box = s_box[k];
+      const float dy = py - box.y;
+      if (fabsf(dy) > box.w || px[0] - box.x > box.z || box.x - px[kPx - 1] > box.z) continue;
+      const float4 A = s_a[k];
+      const float4 B = s_b[k];
+      float power2[kPx], op, r, g, b, thr;
+      if (kMode == kBasis) {
+        const float4 C = s_c[k];
+#pragma unroll
+        for (int i = 0; i < kPx; ++i) {
+          float p = (px[i] * px[i]) * A.x;
+          p = fmaf(f1, A.y, p);
+          p = fmaf(px[i] * py, A.z, p);
+          p = fmaf(px[i], A.w, p);
+          p = fmaf(py, B.x, p);
+          power2[i] = fmaf(1.0f, B.y, p);
+        }
+        op = B.z, thr = B.w, r = C.x, g = C.y, b = C.z;
+      } else {
+        const float b2dy = A.y * dy;
+        const float c2dydy = (A.z * dy) * dy;
+#pragma unroll
+        for (int i = 0; i < kPx; ++i) {
+          const float dx = px[i] - box.x;
+          power2[i] = (A.x * dx + b2dy) * dx + c2dydy;
+        }
+        op = A.w, r = B.x, g = B.y, b = B.z, thr = B.w;
+      }
+#pragma unroll
+      for (int i = 0; i < kPx; ++i) {
+        // Below thr, op * 2^power2 < 1/255 for certain: exp2f is skipped.
+        float a = 0.0f;
+        if (kMode == kFlat)
+          a = power2[i] >= cut ? op : 0.0f;
+        else if (!(power2[i] < thr))
+          a = op * exp2_ftz(fminf(power2[i], 0.0f));
+        if (!(a < kAlphaEps)) {
+          const float w = excl[i] * a;
+          sr[i] += w * r;
+          sg[i] += w * g;
+          sb[i] += w * b;
+          excl[i] *= 1.0f - a;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPx; ++i) {
+      acc_r[i] += T[i] * sr[i];
+      acc_g[i] += T[i] * sg[i];
+      acc_b[i] += T[i] * sb[i];
+      T[i] *= excl[i];
+    }
+  }
+  cp_async_wait<0>();
+
+  const int x0 = (t % tiles_x) * tile + lx0, y = (t / tiles_x) * tile + ly;
+  if (ly < tile && y < height) {
+    float4* o = reinterpret_cast<float4*>(out) + (long long)y * width + x0;
+#pragma unroll
+    for (int i = 0; i < kPx; ++i)
+      if (lx0 + i < tile && x0 + i < width)
+        o[i] = make_float4(acc_r[i], acc_g[i], acc_b[i], 1.0f - T[i]);
+  }
+}
+
+}  // namespace
+
+// entries: (E, 4) u32 sorted live entries; starts, counts: (n_tiles,) i32;
+// out: (height, width, 4) f32. `mxu`: the quadratic-basis exponent (ignored
+// in flat mode, which keeps the Horner form as the reference does).
+extern "C" int gs_composite_v2(const void* entries, const int* starts, const int* counts,
+                               int n_tiles, int tile, int tiles_x, int width, int height,
+                               int flat_mode, int mxu, void* out, void* stream) {
+  if (n_tiles <= 0) return 0;
+  if (tile < 1 || tile * tile > 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = tile * ((tile + kPx - 1) / kPx);
+  auto kernel = flat_mode ? composite_v2_kernel<kFlat>
+                : mxu     ? composite_v2_kernel<kBasis>
+                          : composite_v2_kernel<kHorner>;
+  kernel<<<n_tiles, threads, 0, st>>>(static_cast<const uint4*>(entries), starts, counts, tile,
+                                      tiles_x, width, height, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}

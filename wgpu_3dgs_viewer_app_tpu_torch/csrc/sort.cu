@@ -1,4 +1,4 @@
-// K2 - entry sort: live-entry compaction + stable LSD radix sort of 16-byte
+// K2 - entry sort: a one-sweep stable LSD radix sort of the live 16-byte
 // entries on their 32-bit key, then the per-tile run edges.
 //
 // Replaces the Pallas chain `wgpu_3dgs_viewer_app_tpu/ops/compact.py::
@@ -6,35 +6,55 @@
 // _merge_kernel` (and the searchsorted of `ops/binning.py::_tile_edges`).
 // Those three exist only because Mosaic has no scatter; the function is one:
 // sort the live entries (key != SENTINEL) ascending by u32 key with their
-// three payload words attached.
+// three payload words attached, ties in slot order (the v1 chain's bit-equal
+// binning rests on that stability).
 //
-//   1. compaction: per-block live counts, one exclusive scan, then an
-//      order-preserving scatter of the live entries into a dense prefix;
-//   2. radix sort of that prefix, 4 passes of 8 bits. Each pass: per-block
-//      digit histograms, an exclusive scan of every digit's column over the
-//      blocks plus a scan of the digit totals, then a stable scatter in
-//      which each block ranks its items round by round (one item per
-//      thread, in index order) with warp ballots on the digit bits;
+//   1. upfront: one read of the slots counts the live entries and builds the
+//      histograms of all four 8-bit digits of the live keys (block-private
+//      shared-memory histograms, one global atomic per bin and block); a
+//      second tiny kernel turns them into each digit's global start;
+//   2. four passes, one kernel each (Adinets & Merrill, "Onesweep", 2022).
+//      A block takes its tile of 2560 entries from an atomic ticket (so
+//      the tiles before it are running and look-back always progresses),
+//      loads them as 16-byte vectors, ranks them stably in the block (warp
+//      multi-split with __match_any_sync and per-warp digit counters
+//      combined in warp order), publishes its per-digit counts and then its
+//      inclusive prefixes through decoupled look-back (flag and count in
+//      one 32-bit word per (tile, digit)), reorders the tile into digit
+//      order in shared memory and stores each digit run with consecutive
+//      threads on consecutive addresses. Pass 1 reads the raw slots and
+//      leaves sentinel slots out of its ranks, so it also compacts;
 //   3. run edges: thread i writes edges[t] = i for every tile t in
 //      (tile(i-1), tile(i)], and the last thread closes the tail.
 //
-// What bounds it on an H100: memory traffic. Each radix pass reads the
-// 16-byte entries twice (histogram, scatter) and writes them once, so a
-// frame of E live entries moves ~4 * 48 * E bytes plus the compaction's
-// 32 * E; the scatter's writes land in up to 256 digit runs per block. The
-// design keeps every rank computation in shared memory and registers, moves
-// whole 16-byte entries with one vector load and store, and sorts only the
-// live prefix (the sentinel slack of culled slots is dropped first). The
-// live count is read back to the host by the wrapper to size the sort.
+// What bounds it on an H100: memory traffic. E slots of which L are live
+// move 16 E (upfront) + 16 E + 16 L (pass 1) + 3 x 32 L (passes 2-4) bytes.
+// The design reads the slots twice instead of once per histogram and
+// compaction step, keeps every rank in registers and shared memory, and
+// writes whole digit runs so that the stores coalesce. 10 entries a thread
+// at 3 blocks an SM (80 registers, no spills) came out fastest of the
+// sizes tried (8-16 entries, 2-4 blocks).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;              // threads per block, all kernels
+constexpr int kThreads = 256;               // threads per block, all kernels
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 8;                  // items per thread per block tile
-constexpr int kTile = kThreads * kItems;   // entries per block tile
-constexpr int kScanThreads = 1024;
+constexpr int kItems = 10;                  // entries per thread per tile
+constexpr int kMinBlocks = 3;               // resident pass blocks an SM
+constexpr int kTile = kThreads * kItems;    // entries per pass tile
+constexpr int kRadix = 256;                 // 8-bit digits
+constexpr int kPasses = 4;
+constexpr int kMetaStarts = kPasses * kRadix + 1;  // meta layout, see gs_sort_upfront
+constexpr int kMetaWords = kMetaStarts + kPasses * kRadix;
+// Look-back status word: 2 flag bits over a 30-bit count.
+constexpr unsigned kFlagAggregate = 1u << 30;
+constexpr unsigned kFlagInclusive = 2u << 30;
+constexpr unsigned kCountMask = kFlagAggregate - 1u;
+// The pass kernel's reorder buffer, in dynamic shared memory: with the
+// kernel's ~10 KB of static shared memory it passes the 48 KB a block may
+// take without opting in (cudaFuncSetAttribute in gs_sort_onesweep).
+constexpr size_t kPassSmem = sizeof(uint4) * kTile;
 
 __device__ __forceinline__ unsigned lanemask_lt() {
   unsigned m;
@@ -42,169 +62,179 @@ __device__ __forceinline__ unsigned lanemask_lt() {
   return m;
 }
 
-// Exclusive scan over a block of kScanThreads threads; returns the thread's
-// exclusive prefix and writes the block total to *total.
-__device__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
+// Exclusive scan of one value per thread over a block of kThreads threads;
+// *total receives the block's sum. `warp_sums` holds kWarps words.
+__device__ __forceinline__ unsigned block_exclusive_scan(unsigned v, unsigned* warp_sums,
+                                                         unsigned* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
+  unsigned incl = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+    const unsigned y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
     if (lane >= o) incl += y;
   }
   if (lane == 31) warp_sums[warp] = incl;
   __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    int w = lane < nw ? warp_sums[lane] : 0;
+  unsigned before = 0, sum = 0;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xFFFFFFFFu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < nw) warp_sums[lane] = w;  // inclusive warp prefix
+  for (int w = 0; w < kWarps; ++w) {
+    const unsigned s = warp_sums[w];
+    if (w < warp) before += s;
+    sum += s;
   }
-  __syncthreads();
-  const int before = warp > 0 ? warp_sums[warp - 1] : 0;
-  *total = warp_sums[(blockDim.x >> 5) - 1];
-  __syncthreads();
+  *total = sum;
   return before + incl - v;
 }
 
-// In-place exclusive scan of data[i * stride] for i < count, by one block;
-// blockIdx.x selects the column (data + blockIdx.x), totals[blockIdx.x]
-// receives the column total.
-__global__ void __launch_bounds__(kScanThreads)
-column_scan_kernel(int* data, int count, int stride, int* totals) {
-  __shared__ int warp_sums[32];
-  int* col = data + blockIdx.x;
-  int carry = 0;
-  for (int base = 0; base < count; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int v = i < count ? col[(int64_t)i * stride] : 0;
-    int chunk_total;
-    const int excl = block_exclusive_scan(v, warp_sums, &chunk_total);
-    if (i < count) col[(int64_t)i * stride] = carry + excl;
-    carry += chunk_total;
-  }
-  if (threadIdx.x == 0) totals[blockIdx.x] = carry;
+// ---- 1. upfront histograms ----------------------------------------------------
+
+__device__ __forceinline__ void count_key(unsigned k, unsigned (*h)[kRadix], unsigned& live) {
+  if (k == GS_SENTINEL) return;
+  ++live;
+#pragma unroll
+  for (int p = 0; p < kPasses; ++p) atomicAdd(&h[p][(k >> (8 * p)) & 0xFFu], 1u);
 }
 
-// ---- 1. compaction ---------------------------------------------------------
-
 __global__ void __launch_bounds__(kThreads)
-count_live_kernel(const uint4* __restrict__ in, int64_t n, int* __restrict__ counts) {
-  __shared__ int warp_cnt[kWarps];
-  const int64_t base = (int64_t)blockIdx.x * kTile;
-  int c = 0;
-#pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    const int64_t i = base + r * kThreads + threadIdx.x;
-    if (i < n && in[i].x != GS_SENTINEL) ++c;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xFFFFFFFFu, c, o);
-  if ((threadIdx.x & 31) == 0) warp_cnt[threadIdx.x >> 5] = c;
+upfront_kernel(const uint4* __restrict__ in, long long n, unsigned* __restrict__ meta) {
+  __shared__ unsigned h[kPasses][kRadix];
+  __shared__ unsigned warp_live[kWarps];
+  for (int i = threadIdx.x; i < kPasses * kRadix; i += kThreads) (&h[0][0])[i] = 0u;
   __syncthreads();
+  unsigned live = 0;
+  const long long stride = (long long)gridDim.x * kThreads;
+  long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  for (; i + 3 * stride < n; i += 4 * stride) {
+    unsigned k[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) k[u] = __ldg(&in[i + u * stride].x);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) count_key(k[u], h, live);
+  }
+  for (; i < n; i += stride) count_key(__ldg(&in[i].x), h, live);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) live += __shfl_down_sync(0xFFFFFFFFu, live, o);
+  if ((threadIdx.x & 31) == 0) warp_live[threadIdx.x >> 5] = live;
+  __syncthreads();
+  for (int j = threadIdx.x; j < kPasses * kRadix; j += kThreads) {
+    const unsigned c = (&h[0][0])[j];
+    if (c) atomicAdd(&meta[j], c);
+  }
   if (threadIdx.x == 0) {
-    int s = 0;
-    for (int w = 0; w < kWarps; ++w) s += warp_cnt[w];
-    counts[blockIdx.x] = s;
+    unsigned s = 0;
+    for (int w = 0; w < kWarps; ++w) s += warp_live[w];
+    atomicAdd(&meta[kPasses * kRadix], s);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-compact_kernel(const uint4* __restrict__ in, int64_t n, const int* __restrict__ offsets,
-               uint4* __restrict__ out) {
-  __shared__ int warp_cnt[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t base = (int64_t)blockIdx.x * kTile;
-  int running = offsets[blockIdx.x];
-  for (int r = 0; r < kItems; ++r) {
-    const int64_t i = base + r * kThreads + threadIdx.x;
-    uint4 e = make_uint4(GS_SENTINEL, 0u, 0u, 0u);
-    if (i < n) e = in[i];
-    const bool live = e.x != GS_SENTINEL;
-    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, live);
-    if (lane == 0) warp_cnt[warp] = __popc(ballot);
-    __syncthreads();
-    int before = running, round_total = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < warp) before += warp_cnt[w];
-      round_total += warp_cnt[w];
-    }
-    if (live) out[before + __popc(ballot & lanemask_lt())] = e;
-    running += round_total;
-    __syncthreads();
-  }
+// Block p turns digit position p's histogram into each digit's global start.
+__global__ void __launch_bounds__(kRadix) digit_start_kernel(unsigned* __restrict__ meta) {
+  __shared__ unsigned warp_sums[kWarps];
+  const int p = blockIdx.x, d = threadIdx.x;
+  unsigned total;
+  meta[kMetaStarts + p * kRadix + d] =
+      block_exclusive_scan(meta[p * kRadix + d], warp_sums, &total);
 }
 
-// ---- 2. radix sort -----------------------------------------------------------
+// ---- 2. one-sweep digit pass ----------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-radix_hist_kernel(const uint4* __restrict__ in, int n, int shift, int* __restrict__ hist) {
-  __shared__ int h[256];
-  h[threadIdx.x] = 0;
+// One stable scatter pass on the digit at `shift`: in[0, n) -> out, live
+// entries only (in[i].x != SENTINEL; every entry after pass 1). `start`:
+// each digit's global start; `status`: kRadix zeroed words per tile;
+// `ticket`: a zeroed counter.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+onesweep_pass_kernel(const uint4* __restrict__ in, uint4* __restrict__ out, long long n,
+                     int shift, const unsigned* __restrict__ start, unsigned* status,
+                     unsigned* ticket) {
+  extern __shared__ uint4 s_ent[];              // kTile entries in digit order
+  __shared__ unsigned s_warp[kWarps][kRadix];   // per-warp digit counts -> offsets
+  __shared__ unsigned s_excl[kRadix];           // digit's start in the block's order
+  __shared__ int s_off[kRadix];                 // global position - block position
+  __shared__ unsigned s_sums[kWarps];
+  __shared__ unsigned s_tile;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) s_warp[w][tid] = 0u;
+  if (tid == 0) s_tile = atomicAdd(ticket, 1u);
   __syncthreads();
-  const int64_t base = (int64_t)blockIdx.x * kTile;
+  const unsigned tile = s_tile;
+
+  // Warp w holds entries [w * 32 * kItems, (w + 1) * 32 * kItems) of the
+  // tile; item r of lane l is entry r * 32 + l of that range, so (warp,
+  // item, lane) is slot order.
+  const long long base = (long long)tile * kTile + warp * (32 * kItems) + lane;
+  uint4 e[kItems];
 #pragma unroll
   for (int r = 0; r < kItems; ++r) {
-    const int64_t i = base + r * kThreads + threadIdx.x;
-    if (i < n) atomicAdd(&h[(in[i].x >> shift) & 0xFFu], 1);
+    const long long i = base + r * 32;
+    e[r] = i < n ? in[i] : make_uint4(GS_SENTINEL, 0u, 0u, 0u);
+  }
+
+  // Stable rank inside the warp: peers by __match_any_sync, earlier items
+  // of the same digit counted in s_warp; the lowest peer advances it.
+  const unsigned lt = lanemask_lt();
+  unsigned rank[kItems];
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const bool live = e[r].x != GS_SENTINEL;
+    const unsigned d = live ? (e[r].x >> shift) & 0xFFu : 0x100u;
+    const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
+    const unsigned before = live ? s_warp[warp][d] : 0u;
+    __syncwarp();
+    const unsigned pre = __popc(peers & lt);
+    rank[r] = before + pre;
+    if (live && pre == 0) s_warp[warp][d] = before + __popc(peers);
+    __syncwarp();
   }
   __syncthreads();
-  hist[(int64_t)blockIdx.x * 256 + threadIdx.x] = h[threadIdx.x];
-}
 
-// hist holds, per block, the exclusive offset of each digit among earlier
-// blocks (after column_scan_kernel); digit_total the count of each digit.
-__global__ void __launch_bounds__(kThreads)
-radix_scatter_kernel(const uint4* __restrict__ in, uint4* __restrict__ out, int n, int shift,
-                     const int* __restrict__ hist, const int* __restrict__ digit_total) {
-  __shared__ int base_off[256];
-  __shared__ int wcnt[kWarps][256];
-  __shared__ int warp_sums[32];
-  const int tid = threadIdx.x, warp = tid >> 5;
-
-  // Digit start = exclusive scan of the digit totals (256 = kThreads).
-  int total;
-  const int dstart = block_exclusive_scan(digit_total[tid], warp_sums, &total);
-  base_off[tid] = dstart + hist[(int64_t)blockIdx.x * 256 + tid];
+  // Thread d: the warps' counts of digit d -> exclusive offsets in warp
+  // order; the block's count of d is published at once for look-back.
+  const unsigned d = tid;
+  unsigned count = 0;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) wcnt[w][tid] = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const unsigned c = s_warp[w][d];
+    s_warp[w][d] = count;
+    count += c;
+  }
+  volatile unsigned* my_status = status + (size_t)tile * kRadix + d;
+  *my_status = (tile == 0 ? kFlagInclusive : kFlagAggregate) | count;
+  unsigned n_tile;
+  const unsigned excl = block_exclusive_scan(count, s_sums, &n_tile);
+  s_excl[d] = excl;
   __syncthreads();
 
-  const int64_t base = (int64_t)blockIdx.x * kTile;
+  // Reorder into digit order in shared memory.
+#pragma unroll
   for (int r = 0; r < kItems; ++r) {
-    const int64_t i = base + r * kThreads + tid;
-    const bool valid = i < n;
-    uint4 e = make_uint4(0u, 0u, 0u, 0u);
-    if (valid) e = in[i];
-    const unsigned digit = (e.x >> shift) & 0xFFu;
-    // Lanes of this warp holding the same digit.
-    unsigned peers = __ballot_sync(0xFFFFFFFFu, valid);
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const unsigned bit = __ballot_sync(0xFFFFFFFFu, (digit >> b) & 1u);
-      peers &= ((digit >> b) & 1u) ? bit : ~bit;
+    if (e[r].x == GS_SENTINEL) continue;
+    const unsigned dr = (e[r].x >> shift) & 0xFFu;
+    s_ent[s_excl[dr] + s_warp[warp][dr] + rank[r]] = e[r];
+  }
+
+  // Decoupled look-back over the earlier tiles for digit d.
+  unsigned prefix = 0;
+  if (tile > 0) {
+    for (long long p = (long long)tile - 1;; --p) {
+      const volatile unsigned* ps = status + (size_t)p * kRadix + d;
+      unsigned s;
+      do {
+        s = *ps;
+      } while ((s & ~kCountMask) == 0u);
+      prefix += s & kCountMask;
+      if (s & kFlagInclusive) break;
     }
-    const int rank = __popc(peers & lanemask_lt());
-    if (valid && rank == 0) wcnt[warp][digit] = __popc(peers);
-    __syncthreads();
-    if (valid) {
-      int off = base_off[digit] + rank;
-      for (int w = 0; w < warp; ++w) off += wcnt[w][digit];
-      out[off] = e;
-    }
-    __syncthreads();
-    int add = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      add += wcnt[w][tid];
-      wcnt[w][tid] = 0;
-    }
-    base_off[tid] += add;
-    __syncthreads();
+    *my_status = kFlagInclusive | (prefix + count);
+  }
+  s_off[d] = (int)(start[d] + prefix) - (int)excl;
+  __syncthreads();
+
+  // Each digit run of the tile to its place: consecutive threads, consecutive addresses.
+  for (int i = tid; i < (int)n_tile; i += kThreads) {
+    const uint4 x = s_ent[i];
+    out[s_off[(x.x >> shift) & 0xFFu] + i] = x;
   }
 }
 
@@ -225,38 +255,57 @@ __global__ void tile_edges_kernel(const uint4* __restrict__ sorted, int n, int s
 
 extern "C" {
 
-int gs_sort_num_blocks(long long n) { return (int)((n + kTile - 1) / kTile); }
+// Tiles of a pass over n entries (the look-back status holds kRadix words per tile).
+int gs_sort_num_tiles(long long n) { return (int)((n + kTile - 1) / kTile); }
 
-// Live count: counts[gs_sort_num_blocks(n)] -> exclusive offsets, total[0].
-int gs_sort_count_live(const void* entries, long long n, int* counts, int* total, void* stream) {
+// Words of the meta buffer: [0, 1024) the four digit histograms of the live
+// keys, [1024] the live count, [1025, 2049) each digit's global start.
+int gs_sort_meta_words() { return kMetaWords; }
+
+// Upfront pass over entries[0, n): fills meta (zeroed here).
+int gs_sort_upfront(const void* entries, long long n, unsigned* meta, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nb = gs_sort_num_blocks(n);
-  if (nb == 0) return (int)cudaMemsetAsync(total, 0, sizeof(int), st);
-  count_live_kernel<<<nb, kThreads, 0, st>>>(static_cast<const uint4*>(entries), n, counts);
-  column_scan_kernel<<<1, kScanThreads, 0, st>>>(counts, nb, 1, total);
+  cudaError_t err = cudaMemsetAsync(meta, 0, sizeof(unsigned) * kMetaWords, st);
+  if (err != cudaSuccess || n <= 0) return (int)err;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long want = (n + 8LL * kThreads - 1) / (8LL * kThreads);
+  const int grid = (int)(want < 4LL * sms ? want : 4LL * sms);
+  upfront_kernel<<<grid, kThreads, 0, st>>>(static_cast<const uint4*>(entries), n, meta);
+  digit_start_kernel<<<kPasses, kRadix, 0, st>>>(meta);
   return (int)cudaGetLastError();
 }
 
-// Compacts the live entries into buf_a[0, n_live) and radix-sorts them;
-// buf_b is scratch of the same size, hist holds gs_sort_num_blocks(n_live)
-// * 256 ints, digit_total 256 ints. The result ends in buf_a.
-int gs_sort_compact_radix(const void* entries, long long n, const int* offsets, void* buf_a,
-                          void* buf_b, int n_live, int* hist, int* digit_total, void* stream) {
+// The four passes: entries[0, n) (n_live of them live, as gs_sort_upfront
+// counted into meta) -> buf_a[0, n_live), sorted; buf_b is scratch of the
+// same size; status holds gs_sort_num_tiles(n) * 256 words, tickets 4.
+int gs_sort_onesweep(const void* entries, long long n, void* buf_a, void* buf_b, long long n_live,
+                     const unsigned* meta, unsigned* status, unsigned* tickets, void* stream) {
+  if (n_live <= 0) return 0;
+  if (n_live > (long long)kCountMask || n > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nb = gs_sort_num_blocks(n);
-  if (nb > 0)
-    compact_kernel<<<nb, kThreads, 0, st>>>(static_cast<const uint4*>(entries), n, offsets,
-                                            static_cast<uint4*>(buf_a));
-  const int rb = gs_sort_num_blocks(n_live);
-  uint4* src = static_cast<uint4*>(buf_a);
-  uint4* dst = static_cast<uint4*>(buf_b);
-  for (int shift = 0; rb > 0 && shift < 32; shift += 8) {
-    radix_hist_kernel<<<rb, kThreads, 0, st>>>(src, n_live, shift, hist);
-    column_scan_kernel<<<256, kScanThreads, 0, st>>>(hist, rb, 256, digit_total);
-    radix_scatter_kernel<<<rb, kThreads, 0, st>>>(src, dst, n_live, shift, hist, digit_total);
-    uint4* t = src;
+  // Set on every call: the attribute belongs to the current device.
+  cudaError_t err = cudaFuncSetAttribute(onesweep_pass_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kPassSmem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(tickets, 0, sizeof(unsigned) * kPasses, st);
+  if (err != cudaSuccess) return (int)err;
+  // entries -> b -> a -> b -> a.
+  const uint4* src = static_cast<const uint4*>(entries);
+  uint4* a = static_cast<uint4*>(buf_a);
+  uint4* b = static_cast<uint4*>(buf_b);
+  long long n_src = n;
+  for (int p = 0; p < kPasses; ++p) {
+    uint4* dst = (p & 1) ? a : b;
+    const int tiles = gs_sort_num_tiles(n_src);
+    err = cudaMemsetAsync(status, 0, sizeof(unsigned) * kRadix * tiles, st);
+    if (err != cudaSuccess) return (int)err;
+    onesweep_pass_kernel<<<tiles, kThreads, kPassSmem, st>>>(
+        src, dst, n_src, 8 * p, meta + kMetaStarts + p * kRadix, status, tickets + p);
     src = dst;
-    dst = t;
+    n_src = n_live;
   }
   return (int)cudaGetLastError();
 }

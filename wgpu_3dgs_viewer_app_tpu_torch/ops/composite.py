@@ -2,13 +2,14 @@
 
 `composite_tiles_v2` is the counterpart of the JAX package's
 `composite_tiles_pallas_v2`. On CUDA entries it launches kernel K3
-(`csrc/composite.cu`), or with `transposed=False` or `mxu=True` the
-row-major kernel K7 (`csrc/composite_rows.cu`); on CPU entries it runs the
-plain version, `composite_tiles_plain_v2`, a port of
+(`csrc/composite_v2.cu`), the one counterpart of both of its Pallas kernels
+(row-major and transposed), for every `transposed` and `mxu`; on CPU
+entries it runs the plain version, `composite_tiles_plain_v2`, a port of
 `composite_tiles_jnp_v2` (and of the Pallas kernel's `mxu` exponent): per
 tile, chunks of 128 entries aligned to the global entry order, alpha as a
 (pixels, entries) matrix, transmittance by a cumulative product along the
-entries, and an exit once every pixel of the tile has T <= 1/255.
+entries, and an exit once every pixel of the tile has T <= 1/255. K3 walks
+the same chunks and exits at the same test, so the two differ by rounding.
 
 Alpha per entry and pixel: op * 2^min(power2, 0) in splat mode, with the
 conic rows pre-scaled by -0.5 * log2(e); in ellipse/point mode the flat
@@ -201,7 +202,7 @@ def _power2_quadratic(mx, my, ca, cb, cc, px, py):
     terms of up to ~1e4, so the rounding of each step shows: the
     coefficients and the dot are evaluated as the reference evaluates them
     on the CPU, whose compiler contracts a * b + c * d into fma(a, b, c * d)
-    and accumulates the dot as a chain of fmas in term order. K7 repeats
+    and accumulates the dot as a chain of fmas in term order. K3 repeats
     this with explicit fmaf."""
     l2 = float(np.float32(LOG2E))
     h = float(np.float32(-0.5) * np.float32(LOG2E))
@@ -216,7 +217,7 @@ def _power2_quadratic(mx, my, ca, cb, cc, px, py):
 
 def composite_tiles_plain_v2(entries: SortedEntries, cfg: TileConfig, flat_mode: bool = False,
                              stats: dict | None = None, mxu: bool = False) -> torch.Tensor:
-    """Plain version of K3 and K7: chunks aligned to the global entry order,
+    """Plain version of K3: chunks aligned to the global entry order,
     entries outside the tile's run dead (see `_chunk_loop`, which also fills
     `stats`). `mxu` evaluates the exponent in the quadratic-basis form
     (splat mode only; flat mode keeps the Horner form, as the reference
@@ -251,39 +252,35 @@ def composite_tiles_plain_v2(entries: SortedEntries, cfg: TileConfig, flat_mode:
 
 
 def _composite_tiles_cuda(entries: SortedEntries, cfg: TileConfig, flat_mode: bool,
-                          rows: bool, mxu: bool) -> torch.Tensor:
-    """K3 (`rows` False) or K7 (`rows` True; `mxu`: the quadratic-basis
-    exponent in splat mode)."""
+                          mxu: bool) -> torch.Tensor:
+    """K3 (`mxu`: the quadratic-basis exponent in splat mode)."""
     lib = kernels.library()
     if cfg.tile * cfg.tile > 1024:
-        raise ValueError(f"tile {cfg.tile}: the compositor runs one thread per pixel (<= 32x32)")
+        raise ValueError(f"tile {cfg.tile}: the compositor takes tiles of at most 32x32 pixels")
     ent = entries.entries
     kernels.require(ent, "entries", torch.int32, (ent.shape[0], 4))
     kernels.require(entries.tile_starts, "tile_starts", torch.int32, (cfg.n_tiles,), ent.device)
     kernels.require(entries.tile_counts, "tile_counts", torch.int32, (cfg.n_tiles,), ent.device)
     out = torch.empty((cfg.height, cfg.width, 4), dtype=torch.float32, device=ent.device)
     p = kernels.ptr
-    args = (p(entries.tile_starts), p(entries.tile_counts), cfg.n_tiles, cfg.tile, cfg.tiles_x,
-            cfg.width, cfg.height, int(flat_mode))
-    if rows:
-        kernels.check(lib.gs_composite_rows(p(ent), *args, int(mxu and not flat_mode), p(out),
-                                            kernels.stream()), "gs_composite_rows")
-        kernels.LAUNCHES["composite_rows"] += 1
-    else:
-        kernels.check(lib.gs_composite(p(ent), *args, p(out), kernels.stream()), "gs_composite")
-        kernels.LAUNCHES["composite"] += 1
+    kernels.check(lib.gs_composite_v2(p(ent), p(entries.tile_starts), p(entries.tile_counts),
+                                      cfg.n_tiles, cfg.tile, cfg.tiles_x, cfg.width, cfg.height,
+                                      int(flat_mode), int(mxu and not flat_mode), p(out),
+                                      kernels.stream()), "gs_composite_v2")
+    kernels.LAUNCHES["composite"] += 1
     return out
 
 
 def composite_tiles_v2(entries: SortedEntries, cfg: TileConfig, flat_mode: bool = False,
                        transposed: bool = True, mxu: bool = False) -> torch.Tensor:
-    """SortedEntries -> (H, W, 4) premultiplied RGBA: on CUDA kernel K3, or
-    the row-major kernel K7 with `transposed=False` or `mxu=True` (as the
-    JAX `composite_tiles_pallas_v2` picks its row-major kernel); on the CPU
-    the plain version (with `mxu`)."""
+    """SortedEntries -> (H, W, 4) premultiplied RGBA: kernel K3 on CUDA, the
+    plain version on the CPU (with `mxu`). `transposed` mirrors the JAX
+    `composite_tiles_pallas_v2`, where it picks a TPU lane layout; both
+    layouts compute one function, so it selects nothing here."""
+    del transposed
     if entries.entries.device.type == "cpu":
         return composite_tiles_plain_v2(entries, cfg, flat_mode, mxu=mxu)
-    return _composite_tiles_cuda(entries, cfg, flat_mode, rows=mxu or not transposed, mxu=mxu)
+    return _composite_tiles_cuda(entries, cfg, flat_mode, mxu)
 
 
 def over_background(img: torch.Tensor, background) -> torch.Tensor:

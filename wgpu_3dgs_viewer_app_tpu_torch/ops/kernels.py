@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--fmad=false"]
 
 LAUNCHES = {"fused": 0, "sort": 0, "composite": 0, "geometry": 0, "enum_pack": 0,
-            "composite_v1": 0, "composite_rows": 0}
+            "composite_v1": 0}
 # Seconds the last build in this process took (None: no build ran).
 build_seconds = None
 
@@ -47,13 +47,13 @@ _SIGNATURES = {
     "gs_fused_frontend": [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I)] + [_P] * 13,
     "gs_geometry": [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I)] + [_P] * 10,
     "gs_enum_pack": [_I] * 8 + [_F] * 2 + [_P] * 14,
-    "gs_sort_num_blocks": [ctypes.c_longlong],
-    "gs_sort_count_live": [_P, ctypes.c_longlong, _P, _P, _P],
-    "gs_sort_compact_radix": [_P, ctypes.c_longlong, _P, _P, _P, _I, _P, _P, _P],
+    "gs_sort_num_tiles": [ctypes.c_longlong],
+    "gs_sort_meta_words": [],
+    "gs_sort_upfront": [_P, ctypes.c_longlong, _P, _P],
+    "gs_sort_onesweep": [_P, ctypes.c_longlong, _P, _P, ctypes.c_longlong, _P, _P, _P, _P],
     "gs_sort_tile_edges": [_P, _I, _I, _I, _P, _P],
-    "gs_composite": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "gs_composite_v2": [_P, _P, _P] + [_I] * 7 + [_P, _P],
     "gs_composite_v1": [_P, ctypes.c_longlong, _P, _P] + [_I] * 6 + [_P, _P],
-    "gs_composite_rows": [_P, _P, _P] + [_I] * 7 + [_P, _P],
 }
 
 

@@ -4,10 +4,12 @@ the per-tile run edges.
 `sort_entries` is the counterpart of the JAX package's sort chain
 (`ops/compact.py` -> `ops/sort.py` block sort -> merge levels, then the
 searchsorted of `ops/binning.py`). On CUDA entries it launches kernel K2
-(`csrc/sort.cu`): live-entry compaction, a stable 4-pass LSD radix sort of
-the 16-byte entries, and the tile edges. On CPU entries it runs the plain
-version, `sort_entries_plain`: `torch.sort` of the live keys and a gather.
-Both return the live entries only; tie order is not part of the contract.
+(`csrc/sort.cu`): one upfront read that counts the live entries and builds
+every digit histogram, four one-sweep stable radix passes (the first also
+compacts) and the tile edges. On CPU entries it runs the plain version,
+`sort_entries_plain`: `torch.sort(stable=True)` of the live keys and a
+gather. Both return the live entries only, equal keys in slot order, so
+the two agree entry for entry (`testing.compare_sorted(stable=True)`).
 It also takes the role of the reference's `sort_and_range_entries`: the
 merged multi-model frame hands it all models' entries and the config with
 the rank field; the keys sort as whole 32-bit words and the tile edges are
@@ -24,6 +26,8 @@ from ..core.f16 import u32
 from . import kernels
 from .binning import (SENTINEL, SortedEntries, TileConfig, sorted_entries_from_edges,
                       tile_edges_plain)
+
+_META_LIVE = 4 * 256  # K2's meta buffer: four 256-bin histograms, then the live count
 
 
 def sort_entries_plain(entries: torch.Tensor, cfg: TileConfig,
@@ -43,20 +47,16 @@ def _sort_entries_cuda(entries: torch.Tensor, cfg: TileConfig, shift: int) -> So
     n = entries.shape[0]
     kernels.require(entries, "entries", torch.int32, (n, 4))
     dev, i32, st, p = entries.device, torch.int32, kernels.stream(), kernels.ptr
-    nb = lib.gs_sort_num_blocks(n)
-    offsets = torch.empty(max(nb, 1), dtype=i32, device=dev)
-    total = torch.empty(1, dtype=i32, device=dev)
-    kernels.check(lib.gs_sort_count_live(p(entries), n, p(offsets), p(total), st),
-                  "gs_sort_count_live")
+    meta = torch.empty(lib.gs_sort_meta_words(), dtype=i32, device=dev)
+    kernels.check(lib.gs_sort_upfront(p(entries), n, p(meta), st), "gs_sort_upfront")
     # The live count sizes the sort buffers: one device->host read per frame.
-    n_live = int(total.item())
+    n_live = int(meta[_META_LIVE].item())
     buf_a = torch.empty((n_live, 4), dtype=i32, device=dev)
     buf_b = torch.empty((n_live, 4), dtype=i32, device=dev)
-    hist = torch.empty(max(lib.gs_sort_num_blocks(n_live), 1) * 256, dtype=i32, device=dev)
-    digit_total = torch.empty(256, dtype=i32, device=dev)
-    kernels.check(lib.gs_sort_compact_radix(p(entries), n, p(offsets), p(buf_a), p(buf_b),
-                                            n_live, p(hist), p(digit_total), st),
-                  "gs_sort_compact_radix")
+    status = torch.empty(max(lib.gs_sort_num_tiles(n), 1) * 256, dtype=i32, device=dev)
+    tickets = torch.empty(4, dtype=i32, device=dev)
+    kernels.check(lib.gs_sort_onesweep(p(entries), n, p(buf_a), p(buf_b), n_live, p(meta),
+                                       p(status), p(tickets), st), "gs_sort_onesweep")
     edges = torch.zeros(cfg.n_tiles + 1, dtype=i32, device=dev)
     kernels.check(lib.gs_sort_tile_edges(p(buf_a), n_live, shift, cfg.n_tiles, p(edges), st),
                   "gs_sort_tile_edges")

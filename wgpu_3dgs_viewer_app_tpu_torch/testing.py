@@ -71,17 +71,25 @@ def compare_entries(a, b, cfg, min_identical: float = 0.999) -> dict:
     return stats
 
 
-def compare_sorted(a, b) -> dict:
+def compare_sorted(a, b, stable: bool = False) -> dict:
     """Check two SortedEntries: equal live counts and tile ranges, sorted
-    keys bit-equal, and equal (key, p1, p2, p3) multisets (tie order free)."""
+    keys bit-equal, and equal (key, p1, p2, p3) multisets (tie order free).
+    With `stable`, the live prefixes must be equal row for row: two stable
+    sorts of the same slots keep equal keys in slot order, so every payload
+    word sits in the same row (the bar K2 meets against its plain version)."""
     _require(a.n_valid == b.n_valid, f"live counts differ: {a.n_valid} vs {b.n_valid}")
     ea, eb = _u32(a.entries)[: a.n_valid], _u32(b.entries)[: b.n_valid]
     _require(np.array_equal(ea[:, 0], eb[:, 0]), "sorted keys differ")
     _require((np.diff(ea[:, 0]) >= 0).all(), "keys not ascending")
     _require((ea[:, 0] != SENTINEL).all(), "sentinel inside the live prefix")
-    order_a = np.lexsort(ea.T[::-1])
-    order_b = np.lexsort(eb.T[::-1])
-    _require(np.array_equal(ea[order_a], eb[order_b]), "per-key payload multisets differ")
+    if stable:
+        rows = np.flatnonzero((ea != eb).any(axis=1))
+        _require(rows.size == 0, f"{rows.size} rows differ (ties out of slot order), first at "
+                                 f"row {rows[:1].tolist()}")
+    else:
+        order_a = np.lexsort(ea.T[::-1])
+        order_b = np.lexsort(eb.T[::-1])
+        _require(np.array_equal(ea[order_a], eb[order_b]), "per-key payload multisets differ")
     for name in ("tile_starts", "tile_counts"):
         va, vb = (np.asarray(getattr(x, name).cpu()) for x in (a, b))
         _require(np.array_equal(va, vb), f"{name} differ")
