@@ -14,7 +14,9 @@ Phases, each printing what it found:
      (ungated and with the mask and edit gates) at the config-3 shapes; K5
      enumerate-and-pack on the plain preprocess of the config-1 scene and of
      one config-2 model (ranks 0 and 2), also slot for slot against K1; K1
-     with a model rank at the config-2 shapes;
+     with a model rank at the config-2 shapes; K3 also at tiles 64 (one block
+     of 1024 threads a tile) and 128 (a cluster of 4 row bands) on the
+     config-1 scene;
   3. the golden fixture rendered through the port's CLI on cuda, held to the
      repo's golden gate (`tests/test_golden.py::assert_golden_close`);
   4. BASELINE config 1: a 6M-splat scene at 1920x1080, SH degree 3, norm8
@@ -50,12 +52,27 @@ Phases, each printing what it found:
      point mode, SH 0), K2 row for row at the v1 key, and K3 against its
      plain version with the quadratic-basis exponent and in flat mode on the
      config-0 shapes, for both `transposed` values, and basis against
-     Horner on the card.
+     Horner on the card; K6 also at tiles 64 and 128;
+  8. BASELINE config 4 through the app session (`GaussianSplattingSession`,
+     1920x1088, tile 32, max_dup 4): the config-1 scene written as a PLY to
+     a temporary directory and streamed in (`open_model`, the
+     `StreamingLoader`), the three mask shapes and `(0 | 1) - 2` of
+     bench.py sent as EvaluateMask through the command bus (bits held
+     against a numpy evaluation on the host positions), 2 warm-up and 5
+     timed `update()` frames with the gizmos (gated K1, K2, K3 once a
+     frame; overlay time apart, peak memory, idle share and the top device
+     kernels under torch.profiler), the masked frame against a scene of the
+     kept splats alone (<= 1e-5), two hit queries making a measurement pair
+     (K4), a frame with its line, an export with the mask filter (the kept
+     count), Reset (the unmasked frame again), and a rect gesture with a
+     committed edit.
 
 The line before the last two is the kernels' JSON record (each kernel's
 launches on its path, error against its plain version, times, least time
 the card could take for the same work, and a library call's time where one
-PyTorch call computes the same function); the next is nvidia-smi's name and
+PyTorch call computes the same function; K3 and K6 with their tile-64 and
+tile-128 numbers, and every kernel's launches in one config-4 frame and in
+its hit queries); the next is nvidia-smi's name and
 power limit; the last is {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero. Runs without a CUDA device, or outside the repo, fail
 before printing it.
@@ -119,6 +136,17 @@ CONFIG2_SIZE = (1920, 1088)
 CONFIG2_PLACEMENTS = ((-2.0, 0.0), (0.0, 40.0), (2.0, -40.0))  # x offset, y rotation (deg)
 
 CONFIG3_RECT = ((400.0, 200.0), (1400.0, 800.0))
+
+# BASELINE config 4 (bench.py:313-366): the config-1 scene at 1920x1088, three
+# mask shapes (kind, position, uniform scale) and the op code over them.
+CONFIG4_SIZE = (1920, 1088)
+CONFIG4_SHAPES = (("box", (0.0, 0.0, 0.0), 1.5), ("ellipsoid", (0.5, 0.0, 0.0), 1.0),
+                  ("box", (-0.5, 0.4, 0.0), 0.6))
+CONFIG4_OP = "(0 | 1) - 2"
+CONFIG4_HITS = ((960.0, 544.0), (1060.0, 580.0))
+# Tiles over 32 px that K3 and K6 are held at besides the main path's 32: one
+# block of 1024 threads a tile at 64, a cluster of 4 row bands at 128.
+LARGE_TILES = (64, 128)
 
 
 def log(msg: str) -> None:
@@ -440,7 +468,29 @@ def phase_kernels(g1, cam1, g3, cam3, device) -> dict:
     log(f"phase 2 K3 compositor (Horner): max abs {err:.3e} (<= {K67_TOL}) vs plain; kernel "
         f"{rec['composite']['ms']:.3f} ms, plain {rec['composite']['plain_ms']:.3f} ms, "
         f"{work['pairs']} blends needed, bound {b_ms:.3f} ms ({b_by})")
-    del ent_k, se_k, img_k, img_p, pod
+    del ent_k, se_k, img_k, img_p
+
+    # K3 at tiles over 32 px on the same scene, against its plain version.
+    for tile in LARGE_TILES:
+        cfg_t = TileConfig(w, h, tile=tile, max_dup=4)
+        se_t = sort_entries(enumerate_entries_fused(pod, comp, cfg_t, view, proj, eye), cfg_t)
+        img_t = composite_tiles_v2(se_t, cfg_t)
+        work = {}
+        err_t = float((img_t - composite_tiles_plain_v2(se_t, cfg_t, stats=work)).abs().max())
+        require(err_t <= K67_TOL, f"K3 at tile {tile}: max abs {err_t} > {K67_TOL}")
+        b_t, by_t = bound(work["rows"] * ROW * 16
+                          + nbytes(se_t.tile_starts, se_t.tile_counts, img_t),
+                          K3_OPS_BLEND * work["pairs"])
+        r = {"ms": cuda_ms(lambda: composite_tiles_v2(se_t, cfg_t), 20),
+             "plain_ms": cuda_ms(lambda: composite_tiles_plain_v2(se_t, cfg_t), 1),
+             "bound_ms": b_t, "bound_by": by_t, "max_abs_err": err_t, "blends": work["pairs"]}
+        rec["composite"][f"tile{tile}"] = r
+        rec["composite"]["max_abs_err"] = max(rec["composite"]["max_abs_err"], err_t)
+        log(f"phase 2 K3 at tile {tile} ({cfg_t.n_tiles} tiles, {se_t.n_valid} live entries): max "
+            f"abs {err_t:.3e} (<= {K67_TOL}) vs plain; kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, {work['pairs']} blends needed, bound {b_t:.3f} ms ({by_t})")
+        del se_t, img_t
+    del pod
 
     # K4 at the config-3 shapes, ungated (the timed step) and gated.
     n3 = g3.count
@@ -804,6 +854,27 @@ def phase_compositors(g1, cam1, v2_img, device, smi: str, rec: dict) -> dict:
         f"plain; kernel {rec_v1['ms']:.3f} ms, plain {rec_v1['plain_ms']:.3f} ms, "
         f"{work['pairs']} blends needed, bound {b_ms:.3f} ms ({b_by})")
     del planes, got
+
+    # K6 at tiles over 32 px on the same scene's EntryPlanes, against plain.
+    for tile in LARGE_TILES:
+        cfg_t = TileConfig(w, h, tile=tile, max_dup=4)
+        planes_t = v1_planes(pod, comp, cfg_t, cam1)
+        got_t = composite_tiles(planes_t, cfg_t)
+        work = {}
+        err_t = float((got_t - composite_tiles_plain(planes_t, cfg_t, stats=work)).abs().max())
+        require(err_t <= K67_TOL, f"K6 at tile {tile}: max abs {err_t} > {K67_TOL}")
+        b_t, by_t = bound(work["rows"] * ROW * 4 * N_PLANES
+                          + nbytes(planes_t.row_starts, planes_t.tile_counts, got_t),
+                          K6_OPS_BLEND * work["pairs"])
+        r = {"ms": cuda_ms(lambda: composite_tiles(planes_t, cfg_t), 20),
+             "plain_ms": cuda_ms(lambda: composite_tiles_plain(planes_t, cfg_t), 1),
+             "bound_ms": b_t, "bound_by": by_t, "max_abs_err": err_t, "blends": work["pairs"]}
+        rec_v1[f"tile{tile}"] = r
+        rec_v1["max_abs_err"] = max(rec_v1["max_abs_err"], err_t)
+        log(f"phase 7 K6 at tile {tile} ({cfg_t.n_tiles} tiles, {work['rows']} rows read): max "
+            f"abs {err_t:.3e} (<= {K67_TOL}) vs plain; kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, {work['pairs']} blends needed, bound {b_t:.3f} ms ({by_t})")
+        del planes_t, got_t
 
     # K3 on phase 4's sorted entries (K1 -> K2 at config 1) in the
     # quadratic-basis form against plain, for both `transposed` values, and
@@ -1340,6 +1411,228 @@ def phase_config2(models: list, device, smi: str, rec: dict) -> dict:
     return out
 
 
+class _HeadWriter:
+    """A writer that keeps the first bytes written and counts the rest."""
+
+    def __init__(self, keep: int = 1 << 16):
+        self.head, self.keep, self.size = bytearray(), keep, 0
+
+    def write(self, b) -> int:
+        n = len(b)
+        if len(self.head) < self.keep:
+            self.head += bytes(memoryview(b)[: self.keep - len(self.head)])
+        self.size += n
+        return n
+
+
+def profile_frames(step, frames: int = 3) -> tuple:
+    """torch.profiler over `frames` calls of step() after one warm-up: (wall
+    ms, device-busy ms, [(kernel, ms per frame, launches per frame)] by
+    time, largest first)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # Device-side events only: the host ops that launched them carry the
+    # same device time and would count it twice.
+    rows = [(e.key, e.self_device_time_total / 1e3 / frames, e.count // frames)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(r[1] for r in rows) * frames
+    require(busy > 0, "the profiler saw no device time")
+    return wall, busy, sorted(rows, key=lambda r: -r[1])
+
+
+def phase_config4(g, device, smi: str) -> tuple:
+    """Phase 8: BASELINE config 4 through the app session: the scene
+    streamed in from a PLY, three mask shapes and `(0 | 1) - 2` sent as
+    EvaluateMask, timed `update()` frames with the gizmos, then the
+    session's other steps once each. Returns the launch counts of one frame
+    and of the hit queries."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from wgpu_3dgs_viewer_app_tpu_torch.app import (Action, ExportChoice, GaussianSplattingSession,
+                                                    SceneCommand, SceneCommandKind,
+                                                    SelectionEdit, export_models)
+    from wgpu_3dgs_viewer_app_tpu_torch.data import read_ply_header, write_ply
+    from wgpu_3dgs_viewer_app_tpu_torch.mask import MaskShape, MaskShapeKind
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import kernels
+    from wgpu_3dgs_viewer_app_tpu_torch.query import QuerySelectionOp, QueryToolset
+    from wgpu_3dgs_viewer_app_tpu_torch.viewer import Viewer
+
+    w, h = CONFIG4_SIZE
+    s = GaussianSplattingSession(width=w, height=h, device=device, tile=32, max_dup=4)
+    # The bench camera; a camera moved off its default is never auto-framed.
+    s.camera.control.target = np.zeros(3, np.float32)
+    s.camera.control.pos = np.array([0.0, 0.0, -6.0], np.float32)
+    cam = s.camera.control
+    with tempfile.TemporaryDirectory(prefix="smoke_config4_") as tmp:
+        path = os.path.join(tmp, "config4.ply")
+        t0 = time.perf_counter()
+        with open(path, "wb") as f:
+            write_ply(f, g)
+        write_s = time.perf_counter() - t0
+        ply_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        with open(path, "rb") as f:
+            s.open_model("config4.ply", f)
+            drains = 0
+            while s.loader is not None:
+                s._drain_loader()
+                drains += 1
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    m = s.viewer.models["config4.ply"]
+    require(len(m.buffers) == g.count and np.array_equal(m.gaussians.pos, g.pos),
+            f"streamed {len(m.buffers)} of {g.count} splats")
+    log(f"phase 8 config 4 load: {g.count} splats written as a {ply_bytes / 1e9:.2f} GB PLY "
+        f"in {write_s:.2f} s, streamed in through GaussianSplattingSession.open_model and the "
+        f"StreamingLoader in {load_s:.2f} s over {drains} drains")
+    unmasked = s.viewer.render(cam)
+
+    # The shapes and the op code of bench.py's config 4.
+    for kind, pos, scale in CONFIG4_SHAPES:
+        s.mask.add_shape(MaskShape(kind=MaskShapeKind(kind), pos=np.array(pos, np.float32),
+                                   scale=np.full(3, scale, np.float32)))
+    s.mask.op_code = CONFIG4_OP
+    op = s.mask.parse_op()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.send_command(SceneCommand(SceneCommandKind.EVALUATE_MASK, mask_op=op))
+    s._drain_commands()
+    torch.cuda.synchronize()
+    mask_ms = (time.perf_counter() - t0) * 1e3
+    bits = m.buffers.download_mask().astype(bool)
+    # The same tree on the host positions in numpy f32, each step in the
+    # evaluator's order: each containment value, and whether it lies within
+    # 1e-6 relative of the shape's boundary.
+    x, y, z = (np.ascontiguousarray(g.pos[:, i]) for i in range(3))
+    inside, margin = [], []
+    for shape in s.mask.shapes:
+        pod = shape.to_pod()
+        il, p = pod.inv_lin, pod.pos
+        dx, dy, dz = x - p[0], y - p[1], z - p[2]
+        loc = [il[r, 0] * dx + il[r, 1] * dy + il[r, 2] * dz for r in range(3)]
+        if shape.kind == MaskShapeKind.BOX:
+            v, lim = np.maximum(np.maximum(np.abs(loc[0]), np.abs(loc[1])), np.abs(loc[2])), 0.5
+        else:
+            v, lim = loc[0] * loc[0] + loc[1] * loc[1] + loc[2] * loc[2], 0.25
+        inside.append(v <= lim)
+        margin.append(np.abs(v - lim) <= 1e-6 * lim)
+    host = (inside[0] | inside[1]) & ~inside[2]
+    near = margin[0] | margin[1] | margin[2]
+    differ = bits != host
+    require(not (differ & ~near).any(), f"{int((differ & ~near).sum())} mask bits differ from "
+                                        f"the host evaluation away from a boundary")
+    kept = int(bits.sum())
+    require(0 < kept < g.count, f"{kept} splats kept")
+    log(f"phase 8 config 4 mask: {len(s.mask.shapes)} shapes, '{CONFIG4_OP}', EvaluateMask "
+        f"through the command bus {mask_ms:.3f} ms (the 72 MB position upload included); "
+        f"{kept} of {g.count} splats kept; against the host evaluation (numpy f32): "
+        f"{int(differ.sum())} bits differ, all within 1e-6 relative of a boundary "
+        f"({int(near.sum())} points lie there)")
+
+    # Timed frames with the gizmos.
+    ms, img, peak, launches = timed_frames(s.update)
+    want = {**dict.fromkeys(launches, 0), "fused": 7, "sort": 7, "composite": 7}
+    require(launches == want, f"config-4 session, 7 frames: launched {launches}, expected {want}")
+    # The kept splats fill a box of 1.5 and a ball around the origin, seen
+    # from 6 units: a few percent of the frame.
+    coverage = check_frame(img, "config 4", min_coverage=0.01, size=(w, h))
+    kernels.reset_launch_counts()
+    s.update()
+    frame_launches = dict(kernels.LAUNCHES)
+    render_ms = cuda_ms(lambda: s.viewer.render(cam), 5)
+    wall, busy, rows = profile_frames(s.update)
+    top = ", ".join(f"{k[:40]} {v:.3f}" for k, v, _ in rows[:6])
+    log(f"phase 8 config 4 frames: {g.count} splats at {w}x{h}, SH 3, norm8/half, tile 32, "
+        f"max_dup 4, mask-gated: update() {ms:.3f} ms/frame over 5 frames (Viewer.render alone "
+        f"{render_ms:.3f} ms), peak {peak:.2f} GiB, coverage {coverage:.3f}, launches {launches}; "
+        f"under the profiler, 3 frames: {wall / 3:.3f} ms/frame wall, device busy "
+        f"{busy / 3:.3f} ms/frame, idle share {1 - busy / wall:.3f}; top device ms/frame: {top} "
+        f"[{smi}]")
+
+    # The masked frame against a scene of the kept splats alone, in order.
+    masked = s.viewer.render(cam)
+    only = Viewer(g.select(bits), w, h, tile=32, max_dup=4, device=device).render(cam)
+    d_kept = float((masked - only).abs().max())
+    require(d_kept <= 1e-5, f"masked frame vs kept-splats frame: max abs {d_kept}")
+    require(not torch.equal(masked, unmasked), "the mask changed nothing")
+    del only
+
+    # Two hit clicks make one measurement pair (K4), then a frame with its line.
+    kernels.reset_launch_counts()
+    found = [s.locate_hit(px, 0, i) for i, px in enumerate(CONFIG4_HITS)]
+    hit_launches = dict(kernels.LAUNCHES)
+    require(found == [True, True], f"hit queries found {found}")
+    require(hit_launches == {**dict.fromkeys(hit_launches, 0), "geometry": 2},
+            f"hit queries launched {hit_launches}")
+    pair = s.measurement.hit_pairs[0]
+    dist = pair.distance()
+    require(math.isfinite(dist) and dist > 0, f"measured distance {dist}")
+    with_line = s.update()
+    drawn = int(((with_line - img).abs().amax(dim=-1) > 0).sum())
+    require(drawn > 0, "the measurement line drew nothing")
+    overlay_ms = cuda_ms(lambda: s.render_overlays(masked), 10)
+    log(f"phase 8 checks: masked frame vs a scene of the {kept} kept splats alone max abs "
+        f"{d_kept:.3e} (<= 1e-5); hits at {CONFIG4_HITS}: "
+        f"{[h.pos.round(4).tolist() for h in pair.hits]}, distance {dist:.4f}, launches "
+        f"{hit_launches}; the measurement line changed {drawn} pixels; overlay (gizmos of 3 "
+        f"shapes, 120 segments, + 1 measurement line) {overlay_ms:.3f} ms")
+
+    # Export with the mask filter: the PLY holds the kept splats.
+    out = _HeadWriter()
+    t0 = time.perf_counter()
+    export_models(s.viewer, out, {"config4.ply": ExportChoice(with_edit=False, with_mask=True)})
+    export_s = time.perf_counter() - t0
+    header = read_ply_header(io.BytesIO(bytes(out.head)))
+    require(header.count == kept and out.size == header.header_len + kept * 248,
+            f"export: {header.count} splats, {out.size} bytes; {kept} kept")
+
+    # Reset: every bit set, the frame equals the unmasked one.
+    s.send_command(SceneCommand(SceneCommandKind.EVALUATE_MASK, mask_op=None))
+    s._drain_commands()
+    reset = s.viewer.render(cam)
+    require(bool(m.buffers.mask.all()), "Reset left bits unset")
+    d_reset = float((reset - unmasked).abs().max())
+    require(d_reset == 0.0, f"Reset frame vs unmasked: max abs {d_reset}")
+
+    # A rect selection gesture, its end and a committed edit.
+    s.action = Action.SELECTION
+    s.toolset.set_use_texture(False)
+    s.toolset.start(QueryToolset.RECT, QuerySelectionOp.SET, CONFIG3_RECT[0])
+    s.toolset.update_pos(CONFIG3_RECT[1])
+    kernels.reset_launch_counts()
+    s.end_selection_gesture()
+    require(kernels.LAUNCHES["geometry"] == 1, f"the gesture launched {kernels.LAUNCHES}")
+    selected = int(m.buffers.selection.sum())
+    require(0 < selected < g.count, f"{selected} splats selected")
+    s.selection.edit = SelectionEdit(hsv=(0.3, 1.0, 1.0), alpha=0.5)
+    s.commit_selection_edit()
+    flags = m.buffers.download_edits()[0]
+    sel = m.buffers.download_selection().astype(bool)
+    require(bool((flags[sel] != 0).all()) and not (flags[~sel] != 0).any(),
+            "committed edit records do not follow the selection")
+    s.selection.edit = None
+    edited = s.update()
+    require(not torch.equal(edited, reset), "the committed edit changed nothing")
+    log(f"phase 8 checks: export with the mask filter {header.count} splats, {out.size} bytes in "
+        f"{export_s:.2f} s; Reset frame == unmasked frame (max abs {d_reset}); rect gesture "
+        f"{CONFIG3_RECT} selected {selected} splats (K4 once), edit committed to them")
+    return frame_launches, hit_launches
+
+
 def main() -> int:
     import torch
 
@@ -1384,6 +1677,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches7 = phase_compositors(g1, cam1, v2_img, device, smi, rec)
     launches["composite_v1"] = launches7["composite_v1"]["composite_v1"]
+    del v2_img
+    torch.cuda.empty_cache()
+    launches8, hits8 = phase_config4(g1, device, smi)
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -1391,13 +1687,15 @@ def main() -> int:
         require(launches[name] >= 1, f"kernel {name} never launched on its path: {launches}")
         # `launches`: on the path that is the kernel's main one (config 1 for
         # K1-K3, config 3 for K4, the staged config 2 for K5, phase 7's v1
-        # frame for K6).
+        # frame for K6); config 4: one session frame, and the two hit queries.
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": launches[name],
                     "launches_config2_fused": launches2["fused"][name],
                     "launches_config2_staged": launches2["staged"][name],
                     "launches_v1_frame": launches7["composite_v1"][name],
-                    "launches_rows_frame": launches7["rows"][name], **r})
+                    "launches_rows_frame": launches7["rows"][name],
+                    "launches_config4_frame": launches8[name],
+                    "launches_config4_hits": hits8[name], **r})
     require(all(math.isfinite(k["ms"]) and math.isfinite(k["bound_ms"]) for k in out),
             f"non-finite time in {out}")
     print(json.dumps({"kernels": out}))

@@ -1,24 +1,23 @@
 #!/usr/bin/env python3
-"""Old against new on one card: the entry sort K2 and the v2 compositor of
-this tree against those of another checkout of the port (the parent commit,
-unpacked with `git archive` under a git-ignored directory), on the same
-config-1 and config-2 entries, timed in turns (other, this, this, other).
+"""Old against new on one card: the compositors K3 and K6 and the config-1
+frame of this tree against those of another checkout of the port (the
+parent commit, unpacked with `git archive` under a git-ignored directory),
+on the same inputs, timed in turns (other, this, this, other).
 
     mkdir -p _archive/parent && git archive <commit> | tar -x -C _archive/parent
     python3 scripts/ab_port_kernels.py --parent _archive/parent
 
 The other checkout's package is imported under another name, so both kernel
 libraries are built and loaded in one process. Each time is the mean of 20
-calls by CUDA events (`chip_smoke.cuda_ms`). The compositor runs in every
-mode of `composite_tiles_v2` that differs on the card: transposed Horner
-(the viewer's call), row-major Horner and the quadratic basis (`mxu`); in
-the parent each of those named one of two kernels. Outputs are checked: the
-two sorts row for row (both are stable), the compositors within 1e-4 where
-both walk the reference's chunks. Last, the config-1 frame through each
-tree's `Viewer.render`, 5 frames after 2 warm-ups by the host clock, in
-turns. Prints one line per comparison, the card's
-name and power limit, and a JSON record as the last line. Needs a CUDA
-device.
+calls by CUDA events (`chip_smoke.cuda_ms`). K3 runs on the config-1 and
+config-2 sorted entries at tile 32 in every mode of `composite_tiles_v2`
+that differs on the card: transposed Horner (the viewer's call), row-major
+Horner and the quadratic basis (`mxu`); K6 on the config-1 EntryPlanes at
+tile 32 and in flat mode on the config-0 shapes. The two trees' images must
+agree within 1e-4. Last, the config-1
+frame through each tree's `Viewer.render`, 5 frames after 2 warm-ups by the
+host clock, in turns. Prints one line per comparison, the card's name and
+power limit, and a JSON record as the last line. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -61,7 +60,6 @@ def main() -> int:
 
     import chip_smoke
     from wgpu_3dgs_viewer_app_tpu_torch import ops
-    from wgpu_3dgs_viewer_app_tpu_torch.testing import compare_sorted
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="root of the other checkout")
@@ -89,36 +87,55 @@ def main() -> int:
     rec = {}
     for cell, ent, cfg in (("config1", ent1, cfg1), ("config2", ent2, cfg2)):
         se = ops.sort_entries(ent, cfg)
-        se_old = old.sort_entries(ent, cfg)
-        compare_sorted(se, se_old, stable=True)
-        r = {"sort": turns(lambda: old.sort_entries(ent, cfg), lambda: ops.sort_entries(ent, cfg)),
-             "slots": ent.shape[0], "live": se.n_valid}
-        print(f"{cell} K2: {ent.shape[0]} slots, {se.n_valid} live, outputs equal row for row; "
-              f"other {r['sort']['other_ms']}, this {r['sort']['this_ms']} ms [{smi}]",
-              flush=True)
-        ref = ops.composite_tiles_plain_v2(se, cfg) if cell == "config1" else None
+        r = {"slots": ent.shape[0], "live": se.n_valid}
         for mode, kw in (("transposed_horner", {}), ("rows_horner", {"transposed": False}),
                          ("rows_basis", {"transposed": False, "mxu": True})):
             got = ops.composite_tiles_v2(se, cfg, **kw)
-            got_old = old.composite_tiles_v2(se, cfg, **kw)
-            d = float((got - got_old).abs().max())
-            # The parent's transposed kernel exits per 256-entry batch (<= 1/255).
-            lim = 1.0 / 255.0 + 1e-5 if mode == "transposed_horner" else 1e-4
-            if d > lim:
-                raise AssertionError(f"{cell} {mode}: this vs other max abs {d} > {lim}")
+            d = float((got - old.composite_tiles_v2(se, cfg, **kw)).abs().max())
+            if d > 1e-4:
+                raise AssertionError(f"{cell} K3 {mode}: this vs other max abs {d} > 1e-4")
             r[mode] = turns(lambda: old.composite_tiles_v2(se, cfg, **kw),
                             lambda: ops.composite_tiles_v2(se, cfg, **kw))
             r[mode]["vs_other_max"] = d
-            if ref is not None and mode != "rows_basis":
-                r[mode]["vs_plain_max"] = float((got - ref).abs().max())
-            print(f"{cell} compositor {mode}: this vs other max abs {d:.3e}; other "
-                  f"{r[mode]['other_ms']}, this {r[mode]['this_ms']} ms", flush=True)
+            print(f"{cell} K3 {mode}: this vs other max abs {d:.3e}; other "
+                  f"{r[mode]['other_ms']}, this {r[mode]['this_ms']} ms [{smi}]", flush=True)
         rec[cell] = r
-        del se, se_old
-    # The config-1 frame through each tree's Viewer.render, in turns.
+        del se
     del ent1, ent2
     torch.cuda.empty_cache()
+    # K6 on the config-1 EntryPlanes.
     g1, cam1 = chip_smoke.config1_scene()
+    comp, pod = chip_smoke.pod_tensors(g1, "cuda")
+    planes = chip_smoke.v1_planes(pod, comp, cfg1, cam1)
+    del pod
+    d = float((ops.composite_tiles(planes, cfg1) - old.composite_tiles(planes, cfg1)).abs().max())
+    if d > 1e-4:
+        raise AssertionError(f"config1 K6: this vs other max abs {d} > 1e-4")
+    rec["config1"]["k6"] = turns(lambda: old.composite_tiles(planes, cfg1),
+                                 lambda: ops.composite_tiles(planes, cfg1))
+    rec["config1"]["k6"]["vs_other_max"] = d
+    print(f"config1 K6 ({planes.ent.shape[1]} rows): this vs other max abs {d:.3e}; other "
+          f"{rec['config1']['k6']['other_ms']}, this {rec['config1']['k6']['this_ms']} ms",
+          flush=True)
+    del planes
+    # K6 in flat mode on the config-0 shapes (sparse tiles).
+    g0, cam0 = chip_smoke.config0_scene()
+    comp0, pod0 = chip_smoke.pod_tensors(g0, "cuda")
+    cfg0 = ops.TileConfig(800, 600, tile=32, max_dup=4)
+    planes0 = chip_smoke.v1_planes(pod0, comp0, cfg0, cam0, sh_degree=0, display_mode=2)
+    d = float((ops.composite_tiles(planes0, cfg0, flat_mode=True)
+               - old.composite_tiles(planes0, cfg0, flat_mode=True)).abs().max())
+    if d > 1e-4:
+        raise AssertionError(f"config0 flat K6: this vs other max abs {d} > 1e-4")
+    rec["config0_flat_k6"] = turns(lambda: old.composite_tiles(planes0, cfg0, flat_mode=True),
+                                   lambda: ops.composite_tiles(planes0, cfg0, flat_mode=True))
+    rec["config0_flat_k6"]["vs_other_max"] = d
+    print(f"config0 flat K6: this vs other max abs {d:.3e}; other "
+          f"{rec['config0_flat_k6']['other_ms']}, this {rec['config0_flat_k6']['this_ms']} ms",
+          flush=True)
+    del planes0, pod0
+    torch.cuda.empty_cache()
+    # The config-1 frame through each tree's Viewer.render, in turns.
     from wgpu_3dgs_viewer_app_tpu_torch.viewer import Viewer
     old_viewer = importlib.import_module("other_port.viewer")
     views = {"other": old_viewer.Viewer(g1, 1920, 1080, tile=32, max_dup=4, device="cuda"),

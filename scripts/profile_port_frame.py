@@ -37,7 +37,6 @@ import argparse
 import os
 import subprocess
 import sys
-import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -103,8 +102,6 @@ def tile_walk(se, cfg, top: int = 6) -> str:
 
 def main() -> int:
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
     from wgpu_3dgs_viewer_app_tpu_torch.ops import TileConfig, kernels
@@ -151,28 +148,13 @@ def main() -> int:
         step = v.render if args.config == 1 else chip_smoke.config3_step(v)
         sorted_entries = lambda: config1_sorted(g, cam)
 
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.frames):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    # Device-side events only: the host ops that launched them carry the
-    # same device time and would count it twice.
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(ms for _, ms, _ in rows)
-    if busy <= 0:
-        raise RuntimeError("the profiler saw no device time")
+    step()
+    wall, busy, rows = chip_smoke.profile_frames(step, args.frames)
     print(f"{what}: {n_splats} splats, {args.frames} frames, {wall:.3f} ms wall "
           f"({wall / args.frames:.3f} ms/frame under the profiler), device busy {busy:.3f} ms, "
           f"idle share {1 - busy / wall:.3f}")
-    for name, ms, count in sorted(rows, key=lambda r: -r[1]):
-        print(f"  {ms / args.frames:8.3f} ms/frame  {ms / busy:6.1%}  x{count // args.frames:<3d} "
-              f"{name[:90]}")
+    for name, ms, count in rows:
+        print(f"  {ms:8.3f} ms/frame  {ms * args.frames / busy:6.1%}  x{count:<3d} {name[:90]}")
     if args.tiles:
         print(tile_walk(*sorted_entries()), flush=True)
     print(smi)

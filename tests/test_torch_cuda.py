@@ -5,7 +5,8 @@ sort K2 row for row, the v2 compositor K3 in every mode of its wrapper
 geometry K4, the enumerate-and-pack kernel K5, K1 with a model rank), the
 wrappers' input checks, and the whole slice on the card against the CPU,
 the merged multi-model frame included; the v1 chain's sort (K2 at the v1
-key layout) and compositor K6.
+key layout) and compositor K6; K3 and K6 at tiles over 32 px (one block up
+to 64, a thread block cluster above); the app session's masked frame.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -15,6 +16,7 @@ without JAX (from the repo root):
 """
 
 import dataclasses
+import io
 import math
 import os
 
@@ -23,11 +25,14 @@ import pytest
 import torch
 
 from test_golden import assert_golden_close
+from wgpu_3dgs_viewer_app_tpu_torch.app import (GaussianSplattingSession, SceneCommand,
+                                                SceneCommandKind)
 from wgpu_3dgs_viewer_app_tpu_torch.core import CameraOrbitControl
 from wgpu_3dgs_viewer_app_tpu_torch.core import edit as tedit
 from wgpu_3dgs_viewer_app_tpu_torch.data import (
     ALL_COMPRESSIONS, flat_pod_to_words, make_random_scene, pack_gaussians, pod_to_tensors,
-    read_ply)
+    read_ply, write_ply)
+from wgpu_3dgs_viewer_app_tpu_torch.mask import MaskShape, MaskShapeKind
 from wgpu_3dgs_viewer_app_tpu_torch.core import ModelTransform
 from wgpu_3dgs_viewer_app_tpu_torch.ops import (
     SENTINEL, PreprocessOut, TileConfig, build_entry_planes, build_sorted_entries,
@@ -37,6 +42,7 @@ from wgpu_3dgs_viewer_app_tpu_torch.ops import (
     preprocess, preprocess_geometry_fused, preprocess_geometry_plain, sort_entries,
     sort_entries_plain)
 from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import tile_list_entries
+from wgpu_3dgs_viewer_app_tpu_torch.ops.composite import MAX_CUDA_TILE
 from wgpu_3dgs_viewer_app_tpu_torch.testing import (compare_entries, compare_preprocess,
                                                     compare_sorted)
 from wgpu_3dgs_viewer_app_tpu_torch.viewer import MultiModelViewer, Viewer
@@ -224,12 +230,17 @@ def test_sort_kernel_matches_plain(dev, e, frac, n_keys):
 @pytest.mark.parametrize("tile,mode,transposed,mxu", [
     (32, 0, True, False), (16, 0, True, False), (32, 1, True, False), (32, 2, True, False),
     (16, 0, False, False), (16, 0, False, True), (32, 0, False, True), (32, 2, False, False),
-    (16, 1, True, True), (10, 0, True, True)])
+    (16, 1, True, True), (10, 0, True, True)]
+    + [(tile, mode, True, mxu) for tile in (40, 64, 128, 256)
+       for mode, mxu in ((0, False), (0, True), (1, False))])
 def test_composite_kernel_matches_plain(dev, tile, mode, transposed, mxu):
     """K3 vs its plain version within rounding in every mode of the wrapper
     (Horner or quadratic-basis exponent, splat or flat, both `transposed`):
     one launch of the one kernel each; `transposed` selects nothing. Tile 10
-    leaves the last 4-pixel group of each row half outside the tile."""
+    leaves the last 4-pixel group of each row half outside the tile. Over 32
+    px: tiles 40 and 64 run one block of up to 1024 threads a tile, 128 a
+    cluster of 4 row bands and 256 one of 16 (the most a cluster holds),
+    which stop together at the whole-tile exit test."""
     comp = ALL_COMPRESSIONS[5]
     pod = _pod(comp, 50000, dev)
     cfg = TileConfig(1920, 1080, tile=tile, max_dup=4)
@@ -257,8 +268,8 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="entries"):
         sort_entries(torch.zeros((10, 3), dtype=torch.int32, device=dev), cfg)
     se = build_sorted_entries_fused(pod, comp, cfg, view, proj, EYE)
-    with pytest.raises(ValueError):
-        composite_tiles_v2(se, TileConfig(256, 256, tile=64, max_dup=4))
+    with pytest.raises(ValueError, match=str(MAX_CUDA_TILE)):
+        composite_tiles_v2(se, TileConfig(512, 512, tile=MAX_CUDA_TILE + 1, max_dup=4))
 
 
 def test_viewer_on_card_matches_cpu(dev):
@@ -282,6 +293,51 @@ def test_viewer_on_card_matches_cpu(dev):
 
 def _u8(img):
     return np.clip(img.numpy() * 255.0, 0, 255).astype(np.uint8).astype(np.int16)
+
+
+def test_session_masked_frame_on_card_matches_cpu(dev):
+    """The app session on the golden scene (streamed in from PLY bytes):
+    three mask shapes and `(0 | 1) - 2` sent as EvaluateMask, one `update()`
+    frame with the gizmos on the card (gated K1, K2, K3 once each) against
+    the same session on the CPU, the mask bits equal (every containment
+    step is one rounded f32 operation on both devices), and a hit query on
+    the card (K4) against the CPU one."""
+    g = read_ply(os.path.join(REPO, "tests", "fixtures", "trained_like_100k.ply"))
+    g = g.select(np.arange(g.count) < 20_000)
+    buf = io.BytesIO()
+    write_ply(buf, g)
+    center = g.center()
+    ext = float(np.abs(g.pos - center).max())
+    dist = ext * 2.0
+    yaw = math.radians(30.0)
+    pos = center + dist * np.array([math.sin(yaw), 0.3, math.cos(yaw)], np.float32)
+    out = []
+    for device in (dev, "cpu"):
+        s = GaussianSplattingSession(width=256, height=256, device=device, max_dup=16)
+        s.camera.control.target, s.camera.control.pos = center, pos
+        s.open_model("golden.ply", io.BytesIO(buf.getvalue()))
+        while s.loader is not None:
+            s._drain_loader()
+        for kind, off, scale in ((MaskShapeKind.BOX, 0.0, 1.0), (MaskShapeKind.ELLIPSOID, 0.3, 0.8),
+                                 (MaskShapeKind.BOX, -0.3, 0.4)):
+            s.mask.add_shape(MaskShape(kind=kind, pos=center + np.float32(off * ext),
+                                       scale=np.full(3, scale * ext, np.float32)))
+        s.mask.op_code = "(0 | 1) - 2"
+        s.send_command(SceneCommand(SceneCommandKind.EVALUATE_MASK, mask_op=s.mask.parse_op()))
+        kernels.reset_launch_counts()
+        img = s.update().cpu()
+        launches = dict(kernels.LAUNCHES)
+        kernels.reset_launch_counts()
+        assert s.locate_hit((128, 128), 0, 0)
+        hit_launches = dict(kernels.LAUNCHES)
+        out.append((img, s.viewer.models["golden.ply"].buffers.download_mask(),
+                    s.measurement.hit_pairs[0].hits[0].pos, launches, hit_launches))
+    (img_k, bits_k, hit_k, launches, hit_launches), (img_c, bits_c, hit_c, _, _) = out
+    assert launches == _only(fused=1, sort=1, composite=1)
+    assert hit_launches == _only(geometry=1)
+    assert np.array_equal(bits_k, bits_c) and 0.05 < bits_k.mean() < 0.95
+    assert_golden_close(_u8(img_k), _u8(img_c))
+    assert np.abs(hit_k - hit_c).max() <= 1e-3 * ext
 
 
 def test_gated_viewer_on_card_matches_cpu(dev):
@@ -446,9 +502,12 @@ def test_v1_sort_kernel_matches_torch_sort(dev, tile, d):
     assert torch.equal(lists.sorted_idx, ref.entries[:, 1])
 
 
-@pytest.mark.parametrize("tile,mode", [(16, 0), (32, 0), (16, 1), (32, 2)])
+@pytest.mark.parametrize("tile,mode", [(16, 0), (32, 0), (16, 1), (32, 2)]
+                         + [(tile, mode) for tile in (40, 64, 128, 256) for mode in (0, 1)])
 def test_composite_v1_kernel_matches_plain(dev, tile, mode):
-    """K6 vs its plain version on the same EntryPlanes, splat and flat."""
+    """K6 vs its plain version on the same EntryPlanes, splat and flat; over
+    32 px one block a tile up to 64, a cluster of 4 row bands at 128, of 16
+    at 256."""
     cfg = TileConfig(256, 192, tile=tile, max_dup=16)
     pre = _v1_pre(dev, mode=mode)
     planes = build_entry_planes(pre, build_tile_lists(pre, cfg), cfg)
@@ -468,5 +527,5 @@ def test_v1_wrappers_reject_bad_inputs(dev):
         composite_tiles(dataclasses.replace(planes, ent=planes.ent.double()), cfg)
     with pytest.raises(ValueError, match="row_starts"):
         composite_tiles(dataclasses.replace(planes, row_starts=planes.row_starts.long()), cfg)
-    with pytest.raises(ValueError):
-        composite_tiles(planes, TileConfig(256, 192, tile=64, max_dup=8))
+    with pytest.raises(ValueError, match=str(MAX_CUDA_TILE)):
+        composite_tiles(planes, TileConfig(512, 512, tile=MAX_CUDA_TILE + 1, max_dup=8))

@@ -10,6 +10,6 @@ compositor; selection and hit queries read the query-geometry pass. Each
 kernel has a plain torch version that CPU tensors take.
 """
 
-from . import app, core, data, ops, query, utils, viewer
+from . import app, core, data, mask, ops, query, utils, viewer
 
 __version__ = "0.1.0"

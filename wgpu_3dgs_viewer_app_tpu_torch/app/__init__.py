@@ -1,0 +1,35 @@
+"""The app layer: the session (`GaussianSplattingSession`), streaming load,
+measurement, export and the saved state. `cli` is imported on its own."""
+
+from .export import ExportChoice, export_models, serialize_exports, snapshot_exports
+from .loader import Loadable, StreamingLoader
+from .measurement import (Measurement, MeasurementHit, MeasurementHitPair,
+                          render_measurement_overlay)
+from .persistence import load_compressions, restore_state, save_state
+from .state import (Action, FpsCounter, GaussianSplattingSession, MaskState, SceneCommand,
+                    SceneCommandKind, Selection, SelectionEdit, SelectionMethod)
+
+__all__ = [
+    "ExportChoice",
+    "export_models",
+    "serialize_exports",
+    "snapshot_exports",
+    "Loadable",
+    "StreamingLoader",
+    "Measurement",
+    "MeasurementHit",
+    "MeasurementHitPair",
+    "render_measurement_overlay",
+    "Action",
+    "FpsCounter",
+    "GaussianSplattingSession",
+    "MaskState",
+    "SceneCommand",
+    "SceneCommandKind",
+    "Selection",
+    "SelectionEdit",
+    "SelectionMethod",
+    "load_compressions",
+    "restore_state",
+    "save_state",
+]

@@ -15,7 +15,12 @@ out, so this module needs no JAX).
 - `preprocess_out_from_jax`, `tile_lists_from_jax`, `entry_planes_from_jax`:
   the v1 chain's intermediate state (the JAX `PreprocessOut`, `TileLists`
   and `EntryPlanes` fields) -> the port's containers, so that both chains
-  can be fed the same input at any stage.
+  can be fed the same input at any stage;
+- `mask_shape_from_jax`, `mask_pod_from_jax`, `mask_op_from_jax`: the JAX
+  mask shapes, their pods (numpy f32 on both sides) and op trees -> the
+  port's, read by attribute;
+- `measurement_from_jax`: a JAX `Measurement` (its hit pairs and hit
+  method) -> the port's.
 """
 
 from __future__ import annotations
@@ -23,10 +28,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .app.measurement import Measurement, MeasurementHit, MeasurementHitPair
 from .core.transform import ModelTransform
 from .data.compression import Compressions, ShCompression, pod_to_tensors
+from .mask.expr import MaskOp
+from .mask.shapes import MaskOpShapePod, MaskShape, MaskShapeKind
 from .ops.binning import N_PLANES, ROW, EntryPlanes, SortedEntries, TileLists
 from .ops.preprocess import PreprocessOut
+from .query.hit import MeasurementHitMethod
 from .viewer.viewer import MultiModelViewer, ViewerModel
 
 
@@ -168,3 +177,37 @@ def viewer_from_scene(models: list, width: int, height: int, comp: Compressions,
             b.set_mask(bits_from_jax(spec["mask"], b.capacity, v.device))
         v.models[m.file_name] = m
     return v
+
+
+def mask_shape_from_jax(shape) -> MaskShape:
+    """JAX `MaskShape` -> port `MaskShape` (same kind, TRS, colour, visibility)."""
+    return MaskShape(kind=MaskShapeKind(shape.kind.value),
+                     pos=np.array(shape.pos, np.float32), rot=np.array(shape.rot, np.float32),
+                     scale=np.array(shape.scale, np.float32),
+                     color=np.array(shape.color, np.float32), visible=bool(shape.visible))
+
+
+def mask_pod_from_jax(pod) -> MaskOpShapePod:
+    """JAX `MaskOpShapePod` -> port pod (numpy f32 on both sides)."""
+    return MaskOpShapePod(kind=MaskShapeKind(pod.kind.value),
+                          inv_lin=np.array(pod.inv_lin, np.float32),
+                          pos=np.array(pod.pos, np.float32))
+
+
+def mask_op_from_jax(op):
+    """JAX `MaskOp` tree (or None, Reset) -> port `MaskOp` tree."""
+    if op is None:
+        return None
+    return MaskOp(op.kind, left=mask_op_from_jax(op.left), right=mask_op_from_jax(op.right),
+                  index=op.index)
+
+
+def measurement_from_jax(m) -> Measurement:
+    """JAX `Measurement` -> port `Measurement`: the hit pairs (label,
+    visibility, colour, width, both positions) and the hit method."""
+    pairs = [MeasurementHitPair(label=p.label, visible=bool(p.visible), color=tuple(p.color),
+                                line_width=float(p.line_width),
+                                hits=[MeasurementHit(np.array(h.pos, np.float32))
+                                      for h in p.hits])
+             for p in m.hit_pairs]
+    return Measurement(hit_pairs=pairs, hit_method=MeasurementHitMethod(m.hit_method.value))

@@ -1,4 +1,4 @@
-from .camera import CameraOrbitControl, CameraTrait, look_at_rh, perspective_rh
+from .camera import Camera, CameraOrbitControl, CameraTrait, look_at_rh, perspective_rh
 from .edit import (
     EDIT_FLAG_ENABLED,
     EDIT_FLAG_HIDDEN,
@@ -20,6 +20,7 @@ from .transform import (
 )
 
 __all__ = [
+    "Camera",
     "CameraOrbitControl",
     "CameraTrait",
     "look_at_rh",

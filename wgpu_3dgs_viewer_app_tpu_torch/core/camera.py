@@ -8,6 +8,7 @@ the camera looks down -Z, NDC z in [0, 1] (glam `look_at_rh` /
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -114,3 +115,17 @@ class CameraOrbitControl(CameraTrait):
         d = np.asarray(delta_world, np.float32)
         self.target = self.target + d
         self._pos = self._pos + d
+
+
+@dataclasses.dataclass
+class Camera:
+    """Session camera: a control plus movement speed and sensitivity."""
+
+    control: CameraTrait
+    speed: float = 1.0
+    sensitivity: float = 0.5
+
+    @staticmethod
+    def default() -> "Camera":
+        return Camera(control=CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -1), z=(0.1, 1e4),
+                                                 vertical_fov=math.radians(60.0)))

@@ -61,3 +61,11 @@ def pack2xf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def unpack2xf16(w: torch.Tensor) -> tuple:
     """One u32 word -> two f32 (low, high f16 halves)."""
     return f16_bits_to_f32(w & 0xFFFF), f16_bits_to_f32(w >> 16)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 fma(a, b, c), for repeating where the reference's compiled CPU
+    code contracts a multiply-add: the product of two f32 is exact in f64,
+    so only the sum rounds, to f64 and then to f32; that double rounding
+    differs from an fma's single one only in rare near-tie cases."""
+    return (a.double() * b.double() + c.double()).float()

@@ -29,10 +29,13 @@
 // after 1-3 (scripts/profile_port_frame.py --tiles). The
 // design cuts the instructions of each chunk and leaves the image bit for
 // bit as the straight loop makes it:
-//   - one block per tile of tile * ceil(tile / 4) threads, each thread on 4
-//     consecutive pixels of one row: the entry's shared loads, dy, b2 dy and
-//     (c2 dy) dy are paid once per 4 blends (the same operations in the
-//     same order, so the rounding is the plain version's);
+//   - tile * ceil(tile / 4) threads a tile, each on 4 consecutive pixels of
+//     one row: the entry's shared loads, dy, b2 dy and (c2 dy) dy are paid
+//     once per 4 blends (the same operations in the same order, so the
+//     rounding is the plain version's). Tiles up to 32 px run one block of
+//     <= 256 threads, up to 64 one block of <= 1024, larger ones a thread
+//     block cluster of row bands that keeps the whole-tile exit test
+//     (composite.cuh);
 //   - each chunk is decoded once into packed shared rows, with each entry's
 //     box: the pixels where power2 can reach the alpha floor, widened far
 //     beyond the rounding (box_radii). A thread whose 4 pixels lie outside
@@ -45,25 +48,25 @@
 //     second buffer while the current chunk blends;
 //   - only the live span of a chunk is walked (a tile's first and last
 //     chunks hold entries of its neighbours);
-//   - <= 64 registers a thread, so that four 256-thread blocks share an SM;
+//   - <= 64 registers a thread, so that four 256-thread blocks (or one of
+//     1024) share an SM;
 //   - each thread stores its 4 pixels as one 64-byte run.
 #include <cmath>
 
 #include "common.cuh"
+#include "composite.cuh"
 
 namespace {
 
 // Entries per step of the Horner and flat blend loops (the basis form, at
 // the register limit, takes one at a time).
 constexpr int kUnroll = 2;
-constexpr int kPx = 4;          // consecutive pixels of a row per thread
-constexpr int kMinBlocks = 4;   // resident blocks an SM at 256 threads: <= 64 registers
+using gs_tiles::kPx;
 // Margins (log2 units) of the box and of the exp2f skip below the alpha
 // floor's power2, far wider than the rounding of power2 and exp2f.
 constexpr float kBoxMargin = 1.0f;
 constexpr float kSkipMargin = 1.0f / 64.0f;
 constexpr int kRow = 128;
-constexpr int kMaxThreads = 1024 / kPx;  // tile 32: 32 rows x 8 groups of 4 pixels
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kAlphaEps = 1.0f / 255.0f;
 constexpr float kTEps = 1.0f / 255.0f;
@@ -105,29 +108,34 @@ __device__ __forceinline__ void box_radii(float a2, float b2, float c2, float le
   }
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+// kThreads, kMinBlocks: 256, 4 (tile <= 32) or 1024, 1; kCluster: the tile is
+// a cluster of `bands` blocks of `band_rows` rows (composite.cuh).
+template <int kMode, int kThreads, int kMinBlocks, bool kCluster>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 composite_v2_kernel(const uint4* __restrict__ entries, const int* __restrict__ starts,
                     const int* __restrict__ counts, int tile, int tiles_x, int width,
-                    int height, float* __restrict__ out) {
+                    int height, int bands, int band_rows, float* __restrict__ out) {
   __shared__ uint4 s_raw[2][kRow];
   // box = (mx, my, rx, ry); Horner and flat: a = (a2, b2, c2, op), b = (r, g,
   // b, thr); quadratic basis: a = (G0, G1, G2, G3), b = (G4, G5, op, thr),
   // c = (r, g, b, -).
   __shared__ float4 s_box[kRow], s_a[kRow], s_b[kRow], s_c[kMode == kBasis ? kRow : 1];
+  __shared__ int s_open[2];
 
-  const int t = blockIdx.x;
+  const int t = kCluster ? (int)blockIdx.x / bands : (int)blockIdx.x;
   const int groups = (tile + kPx - 1) / kPx;  // pixel groups per tile row
-  const int lx0 = (int)threadIdx.x % groups * kPx, ly = (int)threadIdx.x / groups;
+  const int lx0 = (int)threadIdx.x % groups * kPx;
+  const int ly = (kCluster ? (int)blockIdx.x % bands * band_rows : 0) + (int)threadIdx.x / groups;
   const float py = (float)ly + 0.5f;  // tile-local
   const float f1 = py * py;
   float px[kPx], T[kPx], acc_r[kPx], acc_g[kPx], acc_b[kPx];
 #pragma unroll
   for (int i = 0; i < kPx; ++i) {
     px[i] = (float)(lx0 + i) + 0.5f;
-    // A group's pixels past the tile's edge (tile not a multiple of kPx) start
-    // at T = 0: they neither hold the block up nor get stored.
-    T[i] = lx0 + i < tile ? 1.0f : 0.0f;
+    // A group's pixels past the tile's edge (tile not a multiple of kPx, or
+    // the last band's spare rows) start at T = 0: they neither hold the tile
+    // up nor get stored.
+    T[i] = lx0 + i < tile && ly < tile ? 1.0f : 0.0f;
     acc_r[i] = acc_g[i] = acc_b[i] = 0.0f;
   }
   const int start = starts[t], count = counts[t];
@@ -153,7 +161,7 @@ composite_v2_kernel(const uint4* __restrict__ entries, const int* __restrict__ s
     bool open = false;
 #pragma unroll
     for (int i = 0; i < kPx; ++i) open = open || T[i] > kTEps;
-    if (!__syncthreads_or(open)) break;
+    if (!gs_tiles::tile_open<kCluster>(open, s_open, c)) break;
     if (c + 1 < n_chunks) prefetch(c + 1, (c + 1) & 1);
     cp_async_commit();
     cp_async_wait<1>();  // chunk c's copies have landed (this thread's)
@@ -255,6 +263,7 @@ composite_v2_kernel(const uint4* __restrict__ entries, const int* __restrict__ s
     }
   }
   cp_async_wait<0>();
+  gs_tiles::tile_done<kCluster>();
 
   const int x0 = (t % tiles_x) * tile + lx0, y = (t / tiles_x) * tile + ly;
   if (ly < tile && y < height) {
@@ -266,22 +275,45 @@ composite_v2_kernel(const uint4* __restrict__ entries, const int* __restrict__ s
   }
 }
 
+template <int kMode>
+int launch_mode(const uint4* entries, const int* starts, const int* counts, int n_tiles,
+                int tile, int tiles_x, int width, int height, float* out, cudaStream_t st) {
+  const gs_tiles::Bands b = gs_tiles::bands_for(tile);
+  switch (gs_tiles::instance_for(b)) {
+    case 0:
+      return gs_tiles::launch(composite_v2_kernel<kMode, gs_tiles::kSmallThreads, 4, false>,
+                              n_tiles, b, st, entries, starts, counts, tile, tiles_x, width,
+                              height, b.bands, b.rows, out);
+    case 1:
+      return gs_tiles::launch(composite_v2_kernel<kMode, gs_tiles::kMaxBlockThreads, 1, false>,
+                              n_tiles, b, st, entries, starts, counts, tile, tiles_x, width,
+                              height, b.bands, b.rows, out);
+    default:
+      return gs_tiles::launch(composite_v2_kernel<kMode, gs_tiles::kMaxBlockThreads, 1, true>,
+                              n_tiles, b, st, entries, starts, counts, tile, tiles_x, width,
+                              height, b.bands, b.rows, out);
+  }
+}
+
 }  // namespace
 
 // entries: (E, 4) u32 sorted live entries; starts, counts: (n_tiles,) i32;
 // out: (height, width, 4) f32. `mxu`: the quadratic-basis exponent (ignored
-// in flat mode, which keeps the Horner form as the reference does).
+// in flat mode, which keeps the Horner form as the reference does). Tiles of
+// 1-256 px; returns gs_tiles::kErrNoCluster if a tile's cluster cannot be
+// placed on the card.
 extern "C" int gs_composite_v2(const void* entries, const int* starts, const int* counts,
                                int n_tiles, int tile, int tiles_x, int width, int height,
                                int flat_mode, int mxu, void* out, void* stream) {
   if (n_tiles <= 0) return 0;
-  if (tile < 1 || tile * tile > 1024) return (int)cudaErrorInvalidValue;
+  if (tile < 1 || gs_tiles::bands_for(tile).bands > gs_tiles::kMaxBands)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = tile * ((tile + kPx - 1) / kPx);
-  auto kernel = flat_mode ? composite_v2_kernel<kFlat>
-                : mxu     ? composite_v2_kernel<kBasis>
-                          : composite_v2_kernel<kHorner>;
-  kernel<<<n_tiles, threads, 0, st>>>(static_cast<const uint4*>(entries), starts, counts, tile,
-                                      tiles_x, width, height, static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  auto e = static_cast<const uint4*>(entries);
+  auto o = static_cast<float*>(out);
+  if (flat_mode)
+    return launch_mode<kFlat>(e, starts, counts, n_tiles, tile, tiles_x, width, height, o, st);
+  if (mxu)
+    return launch_mode<kBasis>(e, starts, counts, n_tiles, tile, tiles_x, width, height, o, st);
+  return launch_mode<kHorner>(e, starts, counts, n_tiles, tile, tiles_x, width, height, o, st);
 }

@@ -16,6 +16,10 @@ conic rows pre-scaled by -0.5 * log2(e); in ellipse/point mode the flat
 opacity inside the 2-sigma cut. Alpha below 1/255 is dropped. The output
 is (H, W, 4) f32: premultiplied RGB and A = 1 - T.
 
+Both CUDA compositors take tiles of 1 to MAX_CUDA_TILE (256) pixels: up to
+64 one block a tile, above that a thread block cluster of row bands that
+keeps the reference's whole-tile exit test (`csrc/composite.cuh`).
+
 `composite_tiles` is the v1 compositor over the unquantized `EntryPlanes`
 (the JAX `composite_tiles`): kernel K6 (`csrc/composite_v1.cu`) on CUDA
 planes, `composite_tiles_plain` (a port of `composite_tiles_jnp`) on CPU
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core.f16 import f16_bits_to_f32, u32, unpack2xf16
+from ..core.f16 import fma_f32 as _fma
 from . import kernels
 from .binning import (ALPHA_MAX, MEAN_FIX_BIAS, MEAN_FIX_SCALE, N_PLANES, ROW, EntryPlanes,
                       SortedEntries, TileConfig)
@@ -38,6 +43,13 @@ T_EPS = 1.0 / 255.0
 FLAT_POWER_CUTOFF = -2.0  # ellipse/point: flat fill inside the 2-sigma boundary
 LOG2E = 1.4426950408889634
 _TILES_PER_STEP = 256
+# The largest tile K3 and K6 take: 4 pixels a thread, so a tile of 256 px is
+# a cluster of 16 blocks of 1024 threads, the most a Hopper cluster holds
+# (csrc/composite.cuh). The plain versions take any tile.
+MAX_CUDA_TILE = 256
+# The launchers' answer when cudaOccupancyMaxActiveClusters finds no place on
+# the card for one tile's cluster of blocks (csrc/composite.cuh).
+_NO_CLUSTER = -2
 
 
 def _u8_unit(w, shift):
@@ -138,21 +150,36 @@ def composite_tiles_plain(planes: EntryPlanes, cfg: TileConfig, flat_mode: bool 
     return _chunk_loop(cfg, (counts + ROW - 1) // ROW, blend, stats)
 
 
+def _require_tile(cfg: TileConfig) -> None:
+    if not 1 <= cfg.tile <= MAX_CUDA_TILE:
+        raise ValueError(f"tile {cfg.tile}: the CUDA compositors take tiles of 1 to "
+                         f"{MAX_CUDA_TILE} pixels")
+
+
+def _check_launch(rc: int, name: str, cfg: TileConfig) -> None:
+    """Raise on a launcher's error; tiles over 64 px run as a thread block
+    cluster, which the card may have no place for."""
+    if rc == _NO_CLUSTER:
+        blocks = -(-cfg.tile * -(-cfg.tile // 4) // 1024)  # composite.cuh::bands_for
+        raise RuntimeError(f"{name}: tile {cfg.tile} needs a cluster of {blocks} blocks of up "
+                           f"to 1024 threads; cudaOccupancyMaxActiveClusters returned 0")
+    kernels.check(rc, name)
+
+
 def _composite_tiles_v1_cuda(planes: EntryPlanes, cfg: TileConfig,
                              flat_mode: bool) -> torch.Tensor:
+    _require_tile(cfg)
     lib = kernels.library()
-    if cfg.tile * cfg.tile > 1024:
-        raise ValueError(f"tile {cfg.tile}: the compositor runs one thread per pixel (<= 32x32)")
     ent = planes.ent
     kernels.require(ent, "ent", torch.float32, (N_PLANES, ent.shape[1], ROW))
     kernels.require(planes.row_starts, "row_starts", torch.int32, (cfg.n_tiles,), ent.device)
     kernels.require(planes.tile_counts, "tile_counts", torch.int32, (cfg.n_tiles,), ent.device)
     out = torch.empty((cfg.height, cfg.width, 4), dtype=torch.float32, device=ent.device)
     p = kernels.ptr
-    kernels.check(lib.gs_composite_v1(p(ent), ent.shape[1], p(planes.row_starts),
+    _check_launch(lib.gs_composite_v1(p(ent), ent.shape[1], p(planes.row_starts),
                                       p(planes.tile_counts), cfg.n_tiles, cfg.tile, cfg.tiles_x,
                                       cfg.width, cfg.height, int(flat_mode), p(out),
-                                      kernels.stream()), "gs_composite_v1")
+                                      kernels.stream()), "gs_composite_v1", cfg)
     kernels.LAUNCHES["composite_v1"] += 1
     return out
 
@@ -186,13 +213,6 @@ def _power2_horner(mx, my, ca, cb, cc, px, py):
     dx = px - mx
     dy = py - my
     return (a2 * dx + b2 * dy) * dx + (c2 * dy) * dy
-
-
-def _fma(a, b, c):
-    """f32 fma(a, b, c): the product of two f32 is exact in f64, so only the
-    sum rounds, to f64 and then to f32; that double rounding differs from
-    an fma's single one only in rare near-tie cases."""
-    return (a.double() * b.double() + c.double()).float()
 
 
 def _power2_quadratic(mx, my, ca, cb, cc, px, py):
@@ -254,19 +274,18 @@ def composite_tiles_plain_v2(entries: SortedEntries, cfg: TileConfig, flat_mode:
 def _composite_tiles_cuda(entries: SortedEntries, cfg: TileConfig, flat_mode: bool,
                           mxu: bool) -> torch.Tensor:
     """K3 (`mxu`: the quadratic-basis exponent in splat mode)."""
+    _require_tile(cfg)
     lib = kernels.library()
-    if cfg.tile * cfg.tile > 1024:
-        raise ValueError(f"tile {cfg.tile}: the compositor takes tiles of at most 32x32 pixels")
     ent = entries.entries
     kernels.require(ent, "entries", torch.int32, (ent.shape[0], 4))
     kernels.require(entries.tile_starts, "tile_starts", torch.int32, (cfg.n_tiles,), ent.device)
     kernels.require(entries.tile_counts, "tile_counts", torch.int32, (cfg.n_tiles,), ent.device)
     out = torch.empty((cfg.height, cfg.width, 4), dtype=torch.float32, device=ent.device)
     p = kernels.ptr
-    kernels.check(lib.gs_composite_v2(p(ent), p(entries.tile_starts), p(entries.tile_counts),
+    _check_launch(lib.gs_composite_v2(p(ent), p(entries.tile_starts), p(entries.tile_counts),
                                       cfg.n_tiles, cfg.tile, cfg.tiles_x, cfg.width, cfg.height,
                                       int(flat_mode), int(mxu and not flat_mode), p(out),
-                                      kernels.stream()), "gs_composite_v2")
+                                      kernels.stream()), "gs_composite_v2", cfg)
     kernels.LAUNCHES["composite"] += 1
     return out
 
