@@ -14,9 +14,9 @@ Phases, each printing what it found:
      (ungated and with the mask and edit gates) at the config-3 shapes; K5
      enumerate-and-pack on the plain preprocess of the config-1 scene and of
      one config-2 model (ranks 0 and 2), also slot for slot against K1; K1
-     with a model rank at the config-2 shapes; K3 also at tiles 64 (one block
-     of 1024 threads a tile) and 128 (a cluster of 4 row bands) on the
-     config-1 scene;
+     with a model rank at the config-2 shapes (and its bound); K3 also at
+     tiles 64 (one block of 1024 threads a tile), 128 (a cluster of 4 row
+     bands) and 320 (32-px parts in two launches) on the config-1 scene;
   3. the golden fixture rendered through the port's CLI on cuda, held to the
      repo's golden gate (`tests/test_golden.py::assert_golden_close`);
   4. BASELINE config 1: a 6M-splat scene at 1920x1080, SH degree 3, norm8
@@ -52,7 +52,7 @@ Phases, each printing what it found:
      point mode, SH 0), K2 row for row at the v1 key, and K3 against its
      plain version with the quadratic-basis exponent and in flat mode on the
      config-0 shapes, for both `transposed` values, and basis against
-     Horner on the card; K6 also at tiles 64 and 128;
+     Horner on the card; K6 also at tiles 64, 128 and 320;
   8. BASELINE config 4 through the app session (`GaussianSplattingSession`,
      1920x1088, tile 32, max_dup 4): the config-1 scene written as a PLY to
      a temporary directory and streamed in (`open_model`, the
@@ -70,8 +70,8 @@ Phases, each printing what it found:
 The line before the last two is the kernels' JSON record (each kernel's
 launches on its path, error against its plain version, times, least time
 the card could take for the same work, and a library call's time where one
-PyTorch call computes the same function; K3 and K6 with their tile-64 and
-tile-128 numbers, and every kernel's launches in one config-4 frame and in
+PyTorch call computes the same function; K3 and K6 with their tile-64,
+tile-128 and tile-320 numbers, and every kernel's launches in one config-4 frame and in
 its hit queries); the next is nvidia-smi's name and
 power limit; the last is {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero. Runs without a CUDA device, or outside the repo, fail
@@ -145,8 +145,9 @@ CONFIG4_SHAPES = (("box", (0.0, 0.0, 0.0), 1.5), ("ellipsoid", (0.5, 0.0, 0.0), 
 CONFIG4_OP = "(0 | 1) - 2"
 CONFIG4_HITS = ((960.0, 544.0), (1060.0, 580.0))
 # Tiles over 32 px that K3 and K6 are held at besides the main path's 32: one
-# block of 1024 threads a tile at 64, a cluster of 4 row bands at 128.
-LARGE_TILES = (64, 128)
+# block of 1024 threads a tile at 64, a cluster of 4 row bands at 128, and
+# 32-px parts in two launches at 320 (csrc/composite.cuh).
+LARGE_TILES = (64, 128, 320)
 
 
 def log(msg: str) -> None:
@@ -173,6 +174,20 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn) -> tuple:
+    """fn()'s result and the milliseconds of that one run, by CUDA events
+    (for plain runs too slow to repeat: ~100 s at tile 320 on an H100)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def nbytes(*tensors) -> int:
@@ -476,20 +491,22 @@ def phase_kernels(g1, cam1, g3, cam3, device) -> dict:
         se_t = sort_entries(enumerate_entries_fused(pod, comp, cfg_t, view, proj, eye), cfg_t)
         img_t = composite_tiles_v2(se_t, cfg_t)
         work = {}
-        err_t = float((img_t - composite_tiles_plain_v2(se_t, cfg_t, stats=work)).abs().max())
+        plain_t, plain_ms = timed_once(lambda: composite_tiles_plain_v2(se_t, cfg_t, stats=work))
+        err_t = float((img_t - plain_t).abs().max())
         require(err_t <= K67_TOL, f"K3 at tile {tile}: max abs {err_t} > {K67_TOL}")
         b_t, by_t = bound(work["rows"] * ROW * 16
                           + nbytes(se_t.tile_starts, se_t.tile_counts, img_t),
                           K3_OPS_BLEND * work["pairs"])
-        r = {"ms": cuda_ms(lambda: composite_tiles_v2(se_t, cfg_t), 20),
-             "plain_ms": cuda_ms(lambda: composite_tiles_plain_v2(se_t, cfg_t), 1),
+        if tile <= 256:  # over 256 the stats run's own time (its counting included)
+            plain_ms = cuda_ms(lambda: composite_tiles_plain_v2(se_t, cfg_t), 1)
+        r = {"ms": cuda_ms(lambda: composite_tiles_v2(se_t, cfg_t), 20), "plain_ms": plain_ms,
              "bound_ms": b_t, "bound_by": by_t, "max_abs_err": err_t, "blends": work["pairs"]}
         rec["composite"][f"tile{tile}"] = r
         rec["composite"]["max_abs_err"] = max(rec["composite"]["max_abs_err"], err_t)
         log(f"phase 2 K3 at tile {tile} ({cfg_t.n_tiles} tiles, {se_t.n_valid} live entries): max "
             f"abs {err_t:.3e} (<= {K67_TOL}) vs plain; kernel {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, {work['pairs']} blends needed, bound {b_t:.3f} ms ({by_t})")
-        del se_t, img_t
+        del se_t, img_t, plain_t
     del pod
 
     # K4 at the config-3 shapes, ungated (the timed step) and gated.
@@ -621,10 +638,13 @@ def phase_kernels_staged(g1, cam1, model2, device, rec: dict) -> None:
         lambda: enumerate_entries_fused(*args, model_rank=1, edit=edit), 20)
     rec["fused"]["config2_ranked_plain_ms"] = cuda_ms(
         lambda: enumerate_entries_plain(*args, model_rank=1, edit=edit), 3)
+    rb_ms, rb_by = k1_bound(pod, ent1, {"edit": edit}, n, cfg_m.max_dup, 15)
+    rec["fused"]["config2_ranked_bound_ms"] = rb_ms
     log(f"phase 2 K1 with model rank 1 of model_bits 2 (one config-2 model, edits on): "
         f"{st['live_a']} live entries, {st['slots_differing']} slots differ from plain, "
         f"{st['identical']:.6f} identical; kernel {rec['fused']['config2_ranked_ms']:.3f} ms, "
-        f"plain {rec['fused']['config2_ranked_plain_ms']:.3f} ms")
+        f"plain {rec['fused']['config2_ranked_plain_ms']:.3f} ms, bound {rb_ms:.4f} ms ({rb_by}: "
+        f"pod words, edit SoA and {ent1.shape[0]} entry slots)")
 
 
 def phase_golden(work_dir: str) -> None:
@@ -861,20 +881,22 @@ def phase_compositors(g1, cam1, v2_img, device, smi: str, rec: dict) -> dict:
         planes_t = v1_planes(pod, comp, cfg_t, cam1)
         got_t = composite_tiles(planes_t, cfg_t)
         work = {}
-        err_t = float((got_t - composite_tiles_plain(planes_t, cfg_t, stats=work)).abs().max())
+        plain_t, plain_ms = timed_once(lambda: composite_tiles_plain(planes_t, cfg_t, stats=work))
+        err_t = float((got_t - plain_t).abs().max())
         require(err_t <= K67_TOL, f"K6 at tile {tile}: max abs {err_t} > {K67_TOL}")
         b_t, by_t = bound(work["rows"] * ROW * 4 * N_PLANES
                           + nbytes(planes_t.row_starts, planes_t.tile_counts, got_t),
                           K6_OPS_BLEND * work["pairs"])
-        r = {"ms": cuda_ms(lambda: composite_tiles(planes_t, cfg_t), 20),
-             "plain_ms": cuda_ms(lambda: composite_tiles_plain(planes_t, cfg_t), 1),
+        if tile <= 256:  # over 256 the stats run's own time (its counting included)
+            plain_ms = cuda_ms(lambda: composite_tiles_plain(planes_t, cfg_t), 1)
+        r = {"ms": cuda_ms(lambda: composite_tiles(planes_t, cfg_t), 20), "plain_ms": plain_ms,
              "bound_ms": b_t, "bound_by": by_t, "max_abs_err": err_t, "blends": work["pairs"]}
         rec_v1[f"tile{tile}"] = r
         rec_v1["max_abs_err"] = max(rec_v1["max_abs_err"], err_t)
         log(f"phase 7 K6 at tile {tile} ({cfg_t.n_tiles} tiles, {work['rows']} rows read): max "
             f"abs {err_t:.3e} (<= {K67_TOL}) vs plain; kernel {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, {work['pairs']} blends needed, bound {b_t:.3f} ms ({by_t})")
-        del planes_t, got_t
+        del planes_t, got_t, plain_t
 
     # K3 on phase 4's sorted entries (K1 -> K2 at config 1) in the
     # quadratic-basis form against plain, for both `transposed` values, and

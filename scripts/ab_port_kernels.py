@@ -13,8 +13,10 @@ calls by CUDA events (`chip_smoke.cuda_ms`). K3 runs on the config-1 and
 config-2 sorted entries at tile 32 in every mode of `composite_tiles_v2`
 that differs on the card: transposed Horner (the viewer's call), row-major
 Horner and the quadratic basis (`mxu`); K6 on the config-1 EntryPlanes at
-tile 32 and in flat mode on the config-0 shapes. The two trees' images must
-agree within 1e-4. Last, the config-1
+tiles 32, 64 and 128 and in flat mode on the config-0 shapes, and at tile
+32 also with each of its layouts forced (1 and 4 pixels a thread, this
+tree only). The two trees' images must agree within 1e-4; whether they are
+equal bit for bit is printed. Last, the config-1
 frame through each tree's `Viewer.render`, 5 frames after 2 warm-ups by the
 host clock, in turns. Prints one line per comparison, the card's name and
 power limit, and a JSON record as the last line. Needs a CUDA device.
@@ -54,6 +56,52 @@ def turns(other, this, reps: int = 20) -> dict:
     return {"other_ms": [a1, a2], "this_ms": [b1, b2]}
 
 
+def compare(name: str, other, this, reps: int = 20) -> dict:
+    """The two trees' images (within 1e-4, and whether bit for bit equal)
+    and their times in turns; prints one line."""
+    import torch
+
+    a, b = other(), this()
+    d = float((a - b).abs().max())
+    if d > 1e-4:
+        raise AssertionError(f"{name}: this vs other max abs {d} > 1e-4")
+    r = {**turns(other, this, reps), "vs_other_max": d, "bit_equal": bool(torch.equal(a, b))}
+    print(f"{name}: this vs other max abs {d:.3e}, bit for bit {r['bit_equal']}; other "
+          f"{r['other_ms']}, this {r['this_ms']} ms", flush=True)
+    return r
+
+
+def k6_layout(ops, planes, cfg, flat: bool, px: int):
+    """K6 of this tree with its pixels a thread forced (tiles up to 32 px),
+    through the measurement-only launcher `gs_composite_v1_px`."""
+    import torch
+
+    ent, k = planes.ent, ops.kernels
+    out = torch.empty((cfg.height, cfg.width, 4), dtype=torch.float32, device=ent.device)
+    k.check(k.library().gs_composite_v1_px(
+        k.ptr(ent), ent.shape[1], k.ptr(planes.row_starts), k.ptr(planes.tile_counts),
+        cfg.n_tiles, cfg.tile, cfg.tiles_x, cfg.width, cfg.height, int(flat), px, None,
+        k.ptr(out), k.stream()), "gs_composite_v1_px")
+    return out
+
+
+def layouts(ops, name: str, planes, cfg, flat: bool = False) -> dict:
+    """K6 at 1 and at 4 pixels a thread, in turns, against its own default."""
+    import chip_smoke
+    import torch
+
+    auto = ops.composite_tiles(planes, cfg, flat_mode=flat)
+    for px in (1, 4):
+        if not torch.equal(k6_layout(ops, planes, cfg, flat, px), auto):
+            raise AssertionError(f"{name}: K6 at {px} px a thread differs from its default")
+    t = [chip_smoke.cuda_ms(lambda: k6_layout(ops, planes, cfg, flat, px), 20)
+         for px in (1, 4, 4, 1)]
+    r = {"px1_ms": [t[0], t[3]], "px4_ms": [t[1], t[2]]}
+    print(f"{name}: K6 layouts (this tree), 1 px a thread {r['px1_ms']}, 4 px {r['px4_ms']} ms; "
+          f"equal images", flush=True)
+    return r
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -90,49 +138,36 @@ def main() -> int:
         r = {"slots": ent.shape[0], "live": se.n_valid}
         for mode, kw in (("transposed_horner", {}), ("rows_horner", {"transposed": False}),
                          ("rows_basis", {"transposed": False, "mxu": True})):
-            got = ops.composite_tiles_v2(se, cfg, **kw)
-            d = float((got - old.composite_tiles_v2(se, cfg, **kw)).abs().max())
-            if d > 1e-4:
-                raise AssertionError(f"{cell} K3 {mode}: this vs other max abs {d} > 1e-4")
-            r[mode] = turns(lambda: old.composite_tiles_v2(se, cfg, **kw),
-                            lambda: ops.composite_tiles_v2(se, cfg, **kw))
-            r[mode]["vs_other_max"] = d
-            print(f"{cell} K3 {mode}: this vs other max abs {d:.3e}; other "
-                  f"{r[mode]['other_ms']}, this {r[mode]['this_ms']} ms [{smi}]", flush=True)
+            r[mode] = compare(f"{cell} K3 {mode} [{smi}]",
+                              lambda: old.composite_tiles_v2(se, cfg, **kw),
+                              lambda: ops.composite_tiles_v2(se, cfg, **kw))
         rec[cell] = r
         del se
     del ent1, ent2
     torch.cuda.empty_cache()
-    # K6 on the config-1 EntryPlanes.
+    # K6 on the config-1 EntryPlanes at tiles 32, 64 and 128.
     g1, cam1 = chip_smoke.config1_scene()
     comp, pod = chip_smoke.pod_tensors(g1, "cuda")
-    planes = chip_smoke.v1_planes(pod, comp, cfg1, cam1)
+    for tile in (32, 64, 128):
+        cfg = ops.TileConfig(1920, 1080, tile=tile, max_dup=4)
+        planes = chip_smoke.v1_planes(pod, comp, cfg, cam1)
+        key = "k6" if tile == 32 else f"k6_tile{tile}"
+        rec["config1"][key] = compare(f"config1 K6 tile {tile} ({planes.ent.shape[1]} rows)",
+                                      lambda: old.composite_tiles(planes, cfg),
+                                      lambda: ops.composite_tiles(planes, cfg))
+        if tile == 32:
+            rec["config1"]["k6_layouts"] = layouts(ops, "config1 tile 32", planes, cfg)
+        del planes
     del pod
-    d = float((ops.composite_tiles(planes, cfg1) - old.composite_tiles(planes, cfg1)).abs().max())
-    if d > 1e-4:
-        raise AssertionError(f"config1 K6: this vs other max abs {d} > 1e-4")
-    rec["config1"]["k6"] = turns(lambda: old.composite_tiles(planes, cfg1),
-                                 lambda: ops.composite_tiles(planes, cfg1))
-    rec["config1"]["k6"]["vs_other_max"] = d
-    print(f"config1 K6 ({planes.ent.shape[1]} rows): this vs other max abs {d:.3e}; other "
-          f"{rec['config1']['k6']['other_ms']}, this {rec['config1']['k6']['this_ms']} ms",
-          flush=True)
-    del planes
     # K6 in flat mode on the config-0 shapes (sparse tiles).
     g0, cam0 = chip_smoke.config0_scene()
     comp0, pod0 = chip_smoke.pod_tensors(g0, "cuda")
     cfg0 = ops.TileConfig(800, 600, tile=32, max_dup=4)
     planes0 = chip_smoke.v1_planes(pod0, comp0, cfg0, cam0, sh_degree=0, display_mode=2)
-    d = float((ops.composite_tiles(planes0, cfg0, flat_mode=True)
-               - old.composite_tiles(planes0, cfg0, flat_mode=True)).abs().max())
-    if d > 1e-4:
-        raise AssertionError(f"config0 flat K6: this vs other max abs {d} > 1e-4")
-    rec["config0_flat_k6"] = turns(lambda: old.composite_tiles(planes0, cfg0, flat_mode=True),
-                                   lambda: ops.composite_tiles(planes0, cfg0, flat_mode=True))
-    rec["config0_flat_k6"]["vs_other_max"] = d
-    print(f"config0 flat K6: this vs other max abs {d:.3e}; other "
-          f"{rec['config0_flat_k6']['other_ms']}, this {rec['config0_flat_k6']['this_ms']} ms",
-          flush=True)
+    rec["config0_flat_k6"] = compare(
+        "config0 flat K6", lambda: old.composite_tiles(planes0, cfg0, flat_mode=True),
+        lambda: ops.composite_tiles(planes0, cfg0, flat_mode=True))
+    rec["config0_flat_k6"]["layouts"] = layouts(ops, "config0 flat", planes0, cfg0, flat=True)
     del planes0, pod0
     torch.cuda.empty_cache()
     # The config-1 frame through each tree's Viewer.render, in turns.

@@ -325,10 +325,11 @@ def _scene_pod(n=400, seed=3):
     return pod, comp, cam
 
 
-@pytest.mark.parametrize("tile", [48, 64, 128])
+@pytest.mark.parametrize("tile", [48, 64, 128, 300])
 def test_plain_v2_compositor_large_tiles_matches_jnp(tile):
     """The plain v2 compositor (K3's reference) against `composite_tiles_jnp_v2`
-    on the same sorted entries at 160x128."""
+    on the same sorted entries at 160x128 (tile 300: one tile larger than the
+    image, whose exit test reads pixels outside it)."""
     pod, comp, cam = _scene_pod()
     w, h = 160, 128
     cfg = TileConfig(w, h, tile=tile, max_dup=8)
@@ -344,10 +345,11 @@ def test_plain_v2_compositor_large_tiles_matches_jnp(tile):
     np.testing.assert_allclose(got, ref, atol=COMPOSITE_TOL)
 
 
-@pytest.mark.parametrize("tile", [48, 64, 128])
+@pytest.mark.parametrize("tile", [48, 64, 128, 300])
 def test_plain_v1_compositor_large_tiles_matches_jnp(tile):
     """The plain v1 compositor (K6's reference) against `composite_tiles_jnp`
-    on the same EntryPlanes at 160x128."""
+    on the same EntryPlanes at 160x128 (tile 300: one tile larger than the
+    image)."""
     pod, comp, cam = _scene_pod()
     w, h = 160, 128
     cfg = TileConfig(w, h, tile=tile, max_dup=16)

@@ -6,7 +6,9 @@ geometry K4, the enumerate-and-pack kernel K5, K1 with a model rank), the
 wrappers' input checks, and the whole slice on the card against the CPU,
 the merged multi-model frame included; the v1 chain's sort (K2 at the v1
 key layout) and compositor K6; K3 and K6 at tiles over 32 px (one block up
-to 64, a thread block cluster above); the app session's masked frame.
+to 64, a thread block cluster up to 256, 32-px parts in two launches
+above, also on a tile larger than the image); the app session's masked
+frame.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -42,7 +44,6 @@ from wgpu_3dgs_viewer_app_tpu_torch.ops import (
     preprocess, preprocess_geometry_fused, preprocess_geometry_plain, sort_entries,
     sort_entries_plain)
 from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import tile_list_entries
-from wgpu_3dgs_viewer_app_tpu_torch.ops.composite import MAX_CUDA_TILE
 from wgpu_3dgs_viewer_app_tpu_torch.testing import (compare_entries, compare_preprocess,
                                                     compare_sorted)
 from wgpu_3dgs_viewer_app_tpu_torch.viewer import MultiModelViewer, Viewer
@@ -231,16 +232,20 @@ def test_sort_kernel_matches_plain(dev, e, frac, n_keys):
     (32, 0, True, False), (16, 0, True, False), (32, 1, True, False), (32, 2, True, False),
     (16, 0, False, False), (16, 0, False, True), (32, 0, False, True), (32, 2, False, False),
     (16, 1, True, True), (10, 0, True, True)]
-    + [(tile, mode, True, mxu) for tile in (40, 64, 128, 256)
+    + [(tile, mode, True, mxu) for tile in (40, 64, 128, 256, 257, 320)
        for mode, mxu in ((0, False), (0, True), (1, False))])
 def test_composite_kernel_matches_plain(dev, tile, mode, transposed, mxu):
     """K3 vs its plain version within rounding in every mode of the wrapper
     (Horner or quadratic-basis exponent, splat or flat, both `transposed`):
-    one launch of the one kernel each; `transposed` selects nothing. Tile 10
-    leaves the last 4-pixel group of each row half outside the tile. Over 32
-    px: tiles 40 and 64 run one block of up to 1024 threads a tile, 128 a
-    cluster of 4 row bands and 256 one of 16 (the most a cluster holds),
-    which stop together at the whole-tile exit test."""
+    one launch of the one kernel each (two over 256 px); `transposed`
+    selects nothing. Tile 10 leaves the last 4-pixel group of each row half
+    outside the tile. Over 32 px: tiles 40 and 64 run one block of up to
+    1024 threads a tile, 128 a cluster of 4 row bands and 256 one of 16 (the
+    most a cluster holds), which stop together at the whole-tile exit test;
+    257 and 320 run 32-px parts in two launches, which keep that test (512,
+    below, on an image smaller than the tile: at 1920x1080 the entries'
+    tile-relative means, clamped to +-128 px, leave most of a 512-px tile
+    empty)."""
     comp = ALL_COMPRESSIONS[5]
     pod = _pod(comp, 50000, dev)
     cfg = TileConfig(1920, 1080, tile=tile, max_dup=4)
@@ -249,12 +254,62 @@ def test_composite_kernel_matches_plain(dev, tile, mode, transposed, mxu):
     flat = mode != 0
     before = dict(kernels.LAUNCHES)
     got = composite_tiles_v2(se, cfg, flat_mode=flat, transposed=transposed, mxu=mxu)
-    assert kernels.LAUNCHES == {**before, "composite": before["composite"] + 1}
+    launches = 2 if tile > 256 else 1
+    assert kernels.LAUNCHES == {**before, "composite": before["composite"] + launches}
     ref = composite_tiles_plain_v2(se, cfg, flat_mode=flat, mxu=mxu)
     assert float(got[..., 3].mean()) > 0.05
     assert float((got - ref).abs().max()) <= K67_TOL
     assert torch.equal(got, composite_tiles_v2(se, cfg, flat_mode=flat,
                                                transposed=not transposed, mxu=mxu))
+
+
+@pytest.mark.parametrize("tile", [257, 320, 512])
+@pytest.mark.parametrize("mode,mxu", [(0, False), (0, True), (1, False)])
+def test_composite_kernel_tile_over_image_matches_plain(dev, tile, mode, mxu):
+    """K3 at tiles over 256 px larger than the 256x192 image (one tile, whose
+    pixels outside the image hold up its exit) vs its plain version."""
+    comp = ALL_COMPRESSIONS[5]
+    pod = _pod(comp, 3000, dev, seed=4, extent=1.0, scale_range=(0.01, 0.06))
+    cfg = TileConfig(256, 192, tile=tile, max_dup=4)
+    view, proj = _camera(256, 192, pos=(0.2, 0.3, -3.5))
+    se = build_sorted_entries_fused(pod, comp, cfg, view, proj, EYE, display_mode=mode)
+    got = composite_tiles_v2(se, cfg, flat_mode=mode != 0, mxu=mxu)
+    ref = composite_tiles_plain_v2(se, cfg, flat_mode=mode != 0, mxu=mxu)
+    assert float(got[..., 3].mean()) > 0.05
+    assert float((got - ref).abs().max()) <= K67_TOL
+
+
+def _faint_dense_pod(dev, comp):
+    """3000 large splats at opacity 0.15-0.35 that cover the whole view: the
+    tiles close before their last chunk, with T at the exit close enough to
+    1/255 that a walk past the exit moves pixels by ~1e-3."""
+    g = make_random_scene(3000, seed=5, extent=2.0, scale_range=(0.4, 0.8))
+    op = np.random.default_rng(1).uniform(0.15, 0.35, g.count).astype(np.float32)
+    g = dataclasses.replace(g, opacity=np.log(op / (1.0 - op)).astype(np.float32))
+    return pod_to_tensors(flat_pod_to_words(pack_gaussians(g, comp), comp), dev)
+
+
+@pytest.mark.parametrize("mode,mxu", [(0, False), (0, True), (1, False)])
+def test_composite_kernel_tile_closes_early_matches_plain(dev, mode, mxu):
+    """K3 at tile 260 (32-px parts in two launches) where the tiles close
+    before their last chunk (the plain version's rows read): pass 2 must
+    stop at the tile's exit chunk."""
+    comp = ALL_COMPRESSIONS[5]
+    cfg = TileConfig(520, 260, tile=260, max_dup=4)
+    view, proj = _camera(520, 260, pos=(0.2, 0.3, -3.5))
+    se = build_sorted_entries_fused(_faint_dense_pod(dev, comp), comp, cfg, view, proj, EYE,
+                                    display_mode=mode)
+    before = dict(kernels.LAUNCHES)
+    got = composite_tiles_v2(se, cfg, flat_mode=mode != 0, mxu=mxu)
+    assert kernels.LAUNCHES == {**before, "composite": before["composite"] + 2}
+    work = {}
+    ref = composite_tiles_plain_v2(se, cfg, flat_mode=mode != 0, stats=work, mxu=mxu)
+    starts = se.tile_starts.long()
+    ends = starts + se.tile_counts.long()
+    chunks = int(torch.where(ends > starts, (ends + 127) // 128 - starts // 128, 0).sum())
+    assert work["rows"] < chunks
+    assert float(got[..., 3].min()) > 0.9
+    assert float((got - ref).abs().max()) <= K67_TOL
 
 
 def test_wrappers_reject_bad_inputs(dev):
@@ -268,8 +323,8 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="entries"):
         sort_entries(torch.zeros((10, 3), dtype=torch.int32, device=dev), cfg)
     se = build_sorted_entries_fused(pod, comp, cfg, view, proj, EYE)
-    with pytest.raises(ValueError, match=str(MAX_CUDA_TILE)):
-        composite_tiles_v2(se, TileConfig(512, 512, tile=MAX_CUDA_TILE + 1, max_dup=4))
+    with pytest.raises(ValueError, match="tile 0"):
+        composite_tiles_v2(se, TileConfig(256, 256, tile=0, max_dup=4))
 
 
 def test_viewer_on_card_matches_cpu(dev):
@@ -503,19 +558,42 @@ def test_v1_sort_kernel_matches_torch_sort(dev, tile, d):
 
 
 @pytest.mark.parametrize("tile,mode", [(16, 0), (32, 0), (16, 1), (32, 2)]
-                         + [(tile, mode) for tile in (40, 64, 128, 256) for mode in (0, 1)])
+                         + [(tile, mode) for tile in (40, 64, 128, 256, 257, 320, 512)
+                            for mode in (0, 1)])
 def test_composite_v1_kernel_matches_plain(dev, tile, mode):
     """K6 vs its plain version on the same EntryPlanes, splat and flat; over
     32 px one block a tile up to 64, a cluster of 4 row bands at 128, of 16
-    at 256."""
+    at 256; over 256 (one tile larger than the image) 32-px parts in two
+    launches."""
     cfg = TileConfig(256, 192, tile=tile, max_dup=16)
     pre = _v1_pre(dev, mode=mode)
     planes = build_entry_planes(pre, build_tile_lists(pre, cfg), cfg)
     before = kernels.LAUNCHES["composite_v1"]
     got = composite_tiles(planes, cfg, flat_mode=mode != 0)
-    assert kernels.LAUNCHES["composite_v1"] == before + 1
+    assert kernels.LAUNCHES["composite_v1"] == before + (2 if tile > 256 else 1)
     ref = composite_tiles_plain(planes, cfg, flat_mode=mode != 0)
     assert float(got[..., 3].mean()) > 0.05
+    assert float((got - ref).abs().max()) <= K67_TOL
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_composite_v1_kernel_tile_closes_early_matches_plain(dev, mode):
+    """K6 at tile 260 (32-px parts in two launches) where the tiles close
+    before their last row (the plain version's rows read): pass 2 must stop
+    at the tile's exit row."""
+    comp = ALL_COMPRESSIONS[5]
+    view, proj = _camera(520, 260, pos=(0.2, 0.3, -3.5))
+    pre = preprocess(_faint_dense_pod(dev, comp), comp, view, proj, EYE, 520, 260,
+                     display_mode=mode)
+    cfg = TileConfig(520, 260, tile=260, max_dup=16)
+    planes = build_entry_planes(pre, build_tile_lists(pre, cfg), cfg)
+    before = kernels.LAUNCHES["composite_v1"]
+    got = composite_tiles(planes, cfg, flat_mode=mode != 0)
+    assert kernels.LAUNCHES["composite_v1"] == before + 2
+    work = {}
+    ref = composite_tiles_plain(planes, cfg, flat_mode=mode != 0, stats=work)
+    assert work["rows"] < int(((planes.tile_counts.long() + 127) // 128).sum())
+    assert float(got[..., 3].min()) > 0.9
     assert float((got - ref).abs().max()) <= K67_TOL
 
 
@@ -527,5 +605,5 @@ def test_v1_wrappers_reject_bad_inputs(dev):
         composite_tiles(dataclasses.replace(planes, ent=planes.ent.double()), cfg)
     with pytest.raises(ValueError, match="row_starts"):
         composite_tiles(dataclasses.replace(planes, row_starts=planes.row_starts.long()), cfg)
-    with pytest.raises(ValueError, match=str(MAX_CUDA_TILE)):
-        composite_tiles(planes, TileConfig(512, 512, tile=MAX_CUDA_TILE + 1, max_dup=8))
+    with pytest.raises(ValueError, match="tile 0"):
+        composite_tiles(planes, TileConfig(256, 192, tile=0, max_dup=8))

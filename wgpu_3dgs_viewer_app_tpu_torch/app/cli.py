@@ -71,7 +71,7 @@ def main(argv=None) -> int:
     r.add_argument("--sh-comp", default="norm8", choices=["single", "half", "norm8", "remove"])
     r.add_argument("--cov3d-comp", default="half", choices=["single", "half"])
     r.add_argument("--tile", type=int, default=32,
-                   help="screen tile size (px; on cuda 1 to 256, on cpu any)")
+                   help="screen tile size (px)")
     r.add_argument("--max-dup", type=int, default=4,
                    help="tile entries per splat (4 = product default; 8/16 = quality presets)")
     r.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")

@@ -1,24 +1,42 @@
 // Shared by the tile compositors K3 (composite_v2.cu) and K6
-// (composite_v1.cu): how a tile of any size up to 256 px maps onto blocks,
-// the reference's whole-tile early-exit test across those blocks, and the
-// launch.
+// (composite_v1.cu): how a tile of any size maps onto blocks, the
+// reference's whole-tile early-exit test across those blocks, the entry box,
+// the cp.async staging and the launches.
 //
-// Each thread takes kPx consecutive pixels of one tile row (K6 up to 32 px
-// keeps its one-pixel kernel), so a tile needs tile * ceil(tile / kPx)
-// threads:
-//   - up to 256 (tile <= 32): one block, K3's 256-thread instance (4 blocks
+// Each thread takes kPx consecutive pixels of one tile row (K6 may take one
+// pixel a thread on tiles up to 32 px), so a tile needs tile * ceil(tile /
+// kPx) threads:
+//   - up to 256 (tile <= 32): one block, the 256-thread instance (4 blocks
 //     an SM, <= 64 registers a thread);
 //   - up to 1024 (tile <= 64): one block, the 1024-thread instance (1 block
 //     an SM, <= 64 registers a thread);
-//   - more: a thread block cluster of `bands` blocks of whole rows, at most
-//     1024 threads each (4 at tile 128, 16 at tile 256, the most a Hopper
-//     cluster may hold, and then only with the non-portable size allowed).
+//   - up to 256 px: a thread block cluster of `bands` blocks of whole rows,
+//     at most 1024 threads each (4 at tile 128, 16 at tile 256, the most a
+//     Hopper cluster may hold, and then only with the non-portable size
+//     allowed);
+//   - over 256 px: parts of kPart x kPart pixels, each one block of the
+//     tile-32 instance, in two launches (below).
 // The reference stops a tile before a chunk when no pixel of the WHOLE tile
-// has T > 1/255. A band that stopped on its own test would blend up to 1/255
-// less into its pixels than the reference does, so each block ORs its own
-// pixels (__syncthreads_or) into a shared flag, the cluster synchronises,
-// and every block reads all its peers' flags through distributed shared
-// memory: all blocks of a tile take the same decision at every chunk.
+// has T > 1/255, pixels past the image's edge included. A band that stopped
+// on its own test would blend up to 1/255 less into its pixels than the
+// reference does, so each block ORs its own pixels (__syncthreads_or) into a
+// shared flag, the cluster synchronises, and every block reads all its
+// peers' flags through distributed shared memory: all blocks of a tile take
+// the same decision at every chunk.
+//
+// Over 256 px a tile fits no cluster, and its parts take the decision in two
+// stream-ordered launches, with no grid-wide wait:
+//   - pass 1 (kFirst): each part walks chunks until its own pixels are all
+//     closed, records that chunk c_p and atomicMax-es it into the tile's c*,
+//     and stores each in-image pixel's rgb sums and T itself (not 1 - T);
+//   - pass 2 (kResume): every part resumes its in-image pixels from that
+//     state over chunks [c_p, c*), with no exit test, and stores 1 - T.
+// T never rises, so a closed part stays closed and the tile's exit chunk is
+// max_p c_p = c*: every pixel walks the same chunks in the same order as in
+// one whole-tile walk, so the image is that walk's bit for bit. Pixels past
+// the image's edge need no saved state, since pass 2 has no exit test.
+// `scratch` (zeros, n_tiles * (1 + parts a tile) ints) holds c* of tile t at
+// [t] and c_p of part p of tile t at [n_tiles + t * parts + p].
 #pragma once
 
 #include <cooperative_groups.h>
@@ -31,10 +49,15 @@ namespace cg = cooperative_groups;
 constexpr int kPx = 4;               // consecutive pixels of a row per thread
 constexpr int kMaxBlockThreads = 1024;
 constexpr int kSmallThreads = 256;   // tile <= 32
-constexpr int kMaxBands = 16;        // tile <= 256
+constexpr int kMaxClusterTile = 256;  // 16 bands, the most a cluster holds
+constexpr int kPart = 32;            // side of a part of a tile over 256 px
 // Returned by `launch` when cudaOccupancyMaxActiveClusters finds no place
 // for one cluster of the tile's blocks.
 constexpr int kErrNoCluster = -2;
+
+// A launch's pass: the whole tile in one block or cluster, or a part's first
+// walk and its resumption (above).
+enum Pass { kWhole = 0, kFirst = 1, kResume = 2 };
 
 // Rows of one tile split into `bands` blocks of `rows` rows (the last band may
 // hold fewer), `threads` a block.
@@ -55,6 +78,54 @@ inline Bands bands_for(int tile) {
 // cluster of bands.
 inline int instance_for(const Bands& b) {
   return b.bands > 1 ? 2 : b.threads > kSmallThreads ? 1 : 0;
+}
+
+// Parts a side of a tile over kMaxClusterTile.
+inline int part_side(int tile) { return (tile + kPart - 1) / kPart; }
+
+// Where a block's thread works: tile t, the tile-local column of its first
+// pixel and its row; and, for the part passes, the tile-local origin of the
+// block's part. kPxT pixels a thread; `side`: parts a side (part passes).
+struct Place {
+  int t, lx0, ly, part_x, part_y;
+};
+
+template <int kPass, bool kCluster, int kPxT>
+__device__ __forceinline__ Place place(int tile, int bands, int band_rows, int side) {
+  Place p;
+  const int unit = kPass == kWhole ? tile : kPart;
+  const int groups = (unit + kPxT - 1) / kPxT;
+  if (kPass == kWhole) {
+    p.t = kCluster ? (int)blockIdx.x / bands : (int)blockIdx.x;
+    p.part_x = p.part_y = 0;
+  } else {
+    const int parts = side * side, part = (int)blockIdx.x % parts;
+    p.t = (int)blockIdx.x / parts;
+    p.part_x = part % side * kPart;
+    p.part_y = part / side * kPart;
+  }
+  p.lx0 = p.part_x + (int)threadIdx.x % groups * kPxT;
+  p.ly = p.part_y + (kCluster ? (int)blockIdx.x % bands * band_rows : 0) +
+         (int)threadIdx.x / groups;
+  return p;
+}
+
+// Pass 2's chunk range [c_p, c*) of this block's part (empty for a part that
+// holds no pixel of the image).
+__device__ __forceinline__ void resume_range(const int* scratch, int t, int side, bool in_image,
+                                             int* c_begin, int* c_end) {
+  const int n_tiles = (int)gridDim.x / (side * side);
+  *c_begin = in_image ? scratch[n_tiles + blockIdx.x] : 0;
+  *c_end = in_image ? scratch[t] : 0;
+}
+
+// Pass 1: the part stopped before chunk c.
+__device__ __forceinline__ void record_exit(int* scratch, int t, int side, int c) {
+  if (threadIdx.x == 0) {
+    const int n_tiles = (int)gridDim.x / (side * side);
+    scratch[n_tiles + blockIdx.x] = c;
+    atomicMax(&scratch[t], c);
+  }
 }
 
 // True while any pixel of the whole tile is open. `open`: this thread's
@@ -79,6 +150,32 @@ __device__ __forceinline__ bool tile_open(bool open, int* flags, int c) {
 template <bool kCluster>
 __device__ __forceinline__ void tile_done() {
   if (kCluster) cg::this_cluster().sync();
+}
+
+// Half-widths (pixels) of the box around the region where the quadratic
+// a2 dx^2 + b2 dx dy + c2 dy^2 reaches `level` (< 0), widened by 0.1% and
+// 0.01 px; unbounded unless the form is negative definite with a condition
+// number under ~2000, which keeps the rounding of the exponent far inside
+// the margin. In double: the f32 products are exact there.
+__device__ __forceinline__ void box_radii(float a2, float b2, float c2, float level, float* rx,
+                                          float* ry) {
+  const double a = a2, b = b2, c = c2, det = 4.0 * a * c - b * b;
+  if (a < 0.0 && c < 0.0 && det > 4e-3 * (a + c) * (a + c) && level < 0.0f) {
+    *rx = (float)(sqrt(level * 4.0 * c / det) * 1.001 + 0.01);
+    *ry = (float)(sqrt(level * 4.0 * a / det) * 1.001 + 0.01);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // Launch `kernel` over n_tiles * b.bands blocks of b.threads, as clusters of
@@ -113,6 +210,20 @@ int launch(void (*kernel)(Params...), int n_tiles, const Bands& b, cudaStream_t 
   if (clusters == 0) return kErrNoCluster;
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// A tile over kMaxClusterTile: pass 1 (`first`), then pass 2 (`resume`), each
+// over n_tiles * part_side(tile)^2 blocks of `threads`, on one stream.
+template <typename... Params, typename... Args>
+int launch_parts(void (*first)(Params...), void (*resume)(Params...), int n_tiles, int tile,
+                 int threads, cudaStream_t st, Args... args) {
+  const int side = part_side(tile);
+  const unsigned blocks = (unsigned)n_tiles * (unsigned)(side * side);
+  first<<<blocks, threads, 0, st>>>(args...);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  resume<<<blocks, threads, 0, st>>>(args...);
   return (int)cudaGetLastError();
 }
 

@@ -33,8 +33,9 @@
 //     one row: the entry's shared loads, dy, b2 dy and (c2 dy) dy are paid
 //     once per 4 blends (the same operations in the same order, so the
 //     rounding is the plain version's). Tiles up to 32 px run one block of
-//     <= 256 threads, up to 64 one block of <= 1024, larger ones a thread
-//     block cluster of row bands that keeps the whole-tile exit test
+//     <= 256 threads, up to 64 one block of <= 1024, up to 256 a thread
+//     block cluster of row bands that keeps the whole-tile exit test, and
+//     larger ones 32-px parts in two launches that keep it too
 //     (composite.cuh);
 //   - each chunk is decoded once into packed shared rows, with each entry's
 //     box: the pixels where power2 can reach the alpha floor, widened far
@@ -61,6 +62,10 @@ namespace {
 // Entries per step of the Horner and flat blend loops (the basis form, at
 // the register limit, takes one at a time).
 constexpr int kUnroll = 2;
+using gs_tiles::cp_async16;
+using gs_tiles::cp_async_commit;
+using gs_tiles::cp_async_wait;
+using gs_tiles::box_radii;
 using gs_tiles::kPx;
 // Margins (log2 units) of the box and of the exp2f skip below the alpha
 // floor's power2, far wider than the rounding of power2 and exp2f.
@@ -82,39 +87,16 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Half-widths (pixels) of the box around the region where the quadratic
-// a2 dx^2 + b2 dx dy + c2 dy^2 reaches `level` (< 0), widened by 0.1% and
-// 0.01 px; unbounded unless the form is negative definite with a condition
-// number under ~2000, which keeps the rounding of power2 far inside the
-// margin. In double: the f32 products are exact there.
-__device__ __forceinline__ void box_radii(float a2, float b2, float c2, float level, float* rx,
-                                          float* ry) {
-  const double a = a2, b = b2, c = c2, det = 4.0 * a * c - b * b;
-  if (a < 0.0 && c < 0.0 && det > 4e-3 * (a + c) * (a + c) && level < 0.0f) {
-    *rx = (float)(sqrt(level * 4.0 * c / det) * 1.001 + 0.01);
-    *ry = (float)(sqrt(level * 4.0 * a / det) * 1.001 + 0.01);
-  }
-}
-
-// kThreads, kMinBlocks: 256, 4 (tile <= 32) or 1024, 1; kCluster: the tile is
-// a cluster of `bands` blocks of `band_rows` rows (composite.cuh).
-template <int kMode, int kThreads, int kMinBlocks, bool kCluster>
+// kThreads, kMinBlocks: 256, 4 (tile <= 32, and the parts of tiles over 256)
+// or 1024, 1; kCluster: the tile is a cluster of `bands` blocks of
+// `band_rows` rows; kPass: the whole tile, or a part's pass 1 or 2 (`side`
+// parts a side, `scratch` their exit chunks) (composite.cuh).
+template <int kMode, int kThreads, int kMinBlocks, bool kCluster, int kPass>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 composite_v2_kernel(const uint4* __restrict__ entries, const int* __restrict__ starts,
                     const int* __restrict__ counts, int tile, int tiles_x, int width,
-                    int height, int bands, int band_rows, float* __restrict__ out) {
+                    int height, int bands, int band_rows, int side, int* __restrict__ scratch,
+                    float* __restrict__ out) {
   __shared__ uint4 s_raw[2][kRow];
   // box = (mx, my, rx, ry); Horner and flat: a = (a2, b2, c2, op), b = (r, g,
   // b, thr); quadratic basis: a = (G0, G1, G2, G3), b = (G4, G5, op, thr),
@@ -122,10 +104,8 @@ composite_v2_kernel(const uint4* __restrict__ entries, const int* __restrict__ s
   __shared__ float4 s_box[kRow], s_a[kRow], s_b[kRow], s_c[kMode == kBasis ? kRow : 1];
   __shared__ int s_open[2];
 
-  const int t = kCluster ? (int)blockIdx.x / bands : (int)blockIdx.x;
-  const int groups = (tile + kPx - 1) / kPx;  // pixel groups per tile row
-  const int lx0 = (int)threadIdx.x % groups * kPx;
-  const int ly = (kCluster ? (int)blockIdx.x % bands * band_rows : 0) + (int)threadIdx.x / groups;
+  const gs_tiles::Place pl = gs_tiles::place<kPass, kCluster, kPx>(tile, bands, band_rows, side);
+  const int t = pl.t, lx0 = pl.lx0, ly = pl.ly;
   const float py = (float)ly + 0.5f;  // tile-local
   const float f1 = py * py;
   float px[kPx], T[kPx], acc_r[kPx], acc_g[kPx], acc_b[kPx];
@@ -142,6 +122,25 @@ composite_v2_kernel(const uint4* __restrict__ entries, const int* __restrict__ s
   const long long end = (long long)start + count;
   const long long row0 = start / kRow;
   const int n_chunks = count > 0 ? (int)((end + kRow - 1) / kRow - row0) : 0;
+  int c = 0, c_end = n_chunks;
+  if (kPass == gs_tiles::kResume) {
+    // Resume the in-image pixels from pass 1's state (T > 0 marks the
+    // tile's pixels); the others are not stored.
+    const int ox = (t % tiles_x) * tile, oy = (t / tiles_x) * tile;
+    const int x0 = ox + lx0, y = oy + ly;
+    gs_tiles::resume_range(scratch, t, side, ox + pl.part_x < width && oy + pl.part_y < height,
+                           &c, &c_end);
+    const float4* o = reinterpret_cast<const float4*>(out) + (long long)y * width + x0;
+#pragma unroll
+    for (int i = 0; i < kPx; ++i) {
+      if (T[i] > 0.0f && x0 + i < width && y < height) {
+        const float4 v = o[i];
+        acc_r[i] = v.x, acc_g[i] = v.y, acc_b[i] = v.z, T[i] = v.w;
+      } else {
+        T[i] = 0.0f;
+      }
+    }
+  }
   const float l2 = kLog2e;
   const float h = -0.5f * kLog2e;
   const float cut = -2.0f * kLog2e;
@@ -155,14 +154,18 @@ composite_v2_kernel(const uint4* __restrict__ entries, const int* __restrict__ s
     }
   };
 
-  if (n_chunks > 0) prefetch(0, 0);
+  if (c < c_end) prefetch(c, c & 1);
   cp_async_commit();
-  for (int c = 0; c < n_chunks; ++c) {
-    bool open = false;
+  for (; c < c_end; ++c) {
+    if (kPass == gs_tiles::kResume) {
+      __syncthreads();  // pass 2 walks to the tile's exit chunk with no test
+    } else {
+      bool open = false;
 #pragma unroll
-    for (int i = 0; i < kPx; ++i) open = open || T[i] > kTEps;
-    if (!gs_tiles::tile_open<kCluster>(open, s_open, c)) break;
-    if (c + 1 < n_chunks) prefetch(c + 1, (c + 1) & 1);
+      for (int i = 0; i < kPx; ++i) open = open || T[i] > kTEps;
+      if (!gs_tiles::tile_open<kCluster>(open, s_open, c)) break;
+    }
+    if (c + 1 < c_end) prefetch(c + 1, (c + 1) & 1);
     cp_async_commit();
     cp_async_wait<1>();  // chunk c's copies have landed (this thread's)
     __syncthreads();     // ... and every thread's
@@ -264,6 +267,7 @@ composite_v2_kernel(const uint4* __restrict__ entries, const int* __restrict__ s
   }
   cp_async_wait<0>();
   gs_tiles::tile_done<kCluster>();
+  if (kPass == gs_tiles::kFirst) gs_tiles::record_exit(scratch, t, side, c);
 
   const int x0 = (t % tiles_x) * tile + lx0, y = (t / tiles_x) * tile + ly;
   if (ly < tile && y < height) {
@@ -271,27 +275,41 @@ composite_v2_kernel(const uint4* __restrict__ entries, const int* __restrict__ s
 #pragma unroll
     for (int i = 0; i < kPx; ++i)
       if (lx0 + i < tile && x0 + i < width)
-        o[i] = make_float4(acc_r[i], acc_g[i], acc_b[i], 1.0f - T[i]);
+        o[i] = make_float4(acc_r[i], acc_g[i], acc_b[i],
+                           kPass == gs_tiles::kFirst ? T[i] : 1.0f - T[i]);
   }
 }
 
 template <int kMode>
 int launch_mode(const uint4* entries, const int* starts, const int* counts, int n_tiles,
-                int tile, int tiles_x, int width, int height, float* out, cudaStream_t st) {
+                int tile, int tiles_x, int width, int height, int* scratch, float* out,
+                cudaStream_t st) {
+  using gs_tiles::kFirst;
+  using gs_tiles::kResume;
+  using gs_tiles::kWhole;
+  constexpr int kSmall = gs_tiles::kSmallThreads, kBig = gs_tiles::kMaxBlockThreads;
+  if (tile > gs_tiles::kMaxClusterTile) {
+    const int side = gs_tiles::part_side(tile);
+    return gs_tiles::launch_parts(composite_v2_kernel<kMode, kSmall, 4, false, kFirst>,
+                                  composite_v2_kernel<kMode, kSmall, 4, false, kResume>, n_tiles,
+                                  tile, gs_tiles::kPart * (gs_tiles::kPart / kPx), st, entries,
+                                  starts, counts, tile, tiles_x, width, height, 1, 0, side,
+                                  scratch, out);
+  }
   const gs_tiles::Bands b = gs_tiles::bands_for(tile);
   switch (gs_tiles::instance_for(b)) {
     case 0:
-      return gs_tiles::launch(composite_v2_kernel<kMode, gs_tiles::kSmallThreads, 4, false>,
-                              n_tiles, b, st, entries, starts, counts, tile, tiles_x, width,
-                              height, b.bands, b.rows, out);
+      return gs_tiles::launch(composite_v2_kernel<kMode, kSmall, 4, false, kWhole>, n_tiles, b,
+                              st, entries, starts, counts, tile, tiles_x, width, height, b.bands,
+                              b.rows, 0, scratch, out);
     case 1:
-      return gs_tiles::launch(composite_v2_kernel<kMode, gs_tiles::kMaxBlockThreads, 1, false>,
-                              n_tiles, b, st, entries, starts, counts, tile, tiles_x, width,
-                              height, b.bands, b.rows, out);
+      return gs_tiles::launch(composite_v2_kernel<kMode, kBig, 1, false, kWhole>, n_tiles, b, st,
+                              entries, starts, counts, tile, tiles_x, width, height, b.bands,
+                              b.rows, 0, scratch, out);
     default:
-      return gs_tiles::launch(composite_v2_kernel<kMode, gs_tiles::kMaxBlockThreads, 1, true>,
-                              n_tiles, b, st, entries, starts, counts, tile, tiles_x, width,
-                              height, b.bands, b.rows, out);
+      return gs_tiles::launch(composite_v2_kernel<kMode, kBig, 1, true, kWhole>, n_tiles, b, st,
+                              entries, starts, counts, tile, tiles_x, width, height, b.bands,
+                              b.rows, 0, scratch, out);
   }
 }
 
@@ -299,21 +317,25 @@ int launch_mode(const uint4* entries, const int* starts, const int* counts, int 
 
 // entries: (E, 4) u32 sorted live entries; starts, counts: (n_tiles,) i32;
 // out: (height, width, 4) f32. `mxu`: the quadratic-basis exponent (ignored
-// in flat mode, which keeps the Horner form as the reference does). Tiles of
-// 1-256 px; returns gs_tiles::kErrNoCluster if a tile's cluster cannot be
-// placed on the card.
+// in flat mode, which keeps the Horner form as the reference does). Any tile
+// >= 1 px; over 256 px two launches, with `scratch` n_tiles * (1 +
+// part_side(tile)^2) zeroed ints (composite.cuh), else NULL. Returns
+// gs_tiles::kErrNoCluster if a tile's cluster cannot be placed on the card.
 extern "C" int gs_composite_v2(const void* entries, const int* starts, const int* counts,
                                int n_tiles, int tile, int tiles_x, int width, int height,
-                               int flat_mode, int mxu, void* out, void* stream) {
+                               int flat_mode, int mxu, int* scratch, void* out, void* stream) {
   if (n_tiles <= 0) return 0;
-  if (tile < 1 || gs_tiles::bands_for(tile).bands > gs_tiles::kMaxBands)
+  if (tile < 1 || (tile > gs_tiles::kMaxClusterTile && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto e = static_cast<const uint4*>(entries);
   auto o = static_cast<float*>(out);
   if (flat_mode)
-    return launch_mode<kFlat>(e, starts, counts, n_tiles, tile, tiles_x, width, height, o, st);
+    return launch_mode<kFlat>(e, starts, counts, n_tiles, tile, tiles_x, width, height, scratch,
+                              o, st);
   if (mxu)
-    return launch_mode<kBasis>(e, starts, counts, n_tiles, tile, tiles_x, width, height, o, st);
-  return launch_mode<kHorner>(e, starts, counts, n_tiles, tile, tiles_x, width, height, o, st);
+    return launch_mode<kBasis>(e, starts, counts, n_tiles, tile, tiles_x, width, height, scratch,
+                               o, st);
+  return launch_mode<kHorner>(e, starts, counts, n_tiles, tile, tiles_x, width, height, scratch,
+                              o, st);
 }

@@ -16,9 +16,11 @@ conic rows pre-scaled by -0.5 * log2(e); in ellipse/point mode the flat
 opacity inside the 2-sigma cut. Alpha below 1/255 is dropped. The output
 is (H, W, 4) f32: premultiplied RGB and A = 1 - T.
 
-Both CUDA compositors take tiles of 1 to MAX_CUDA_TILE (256) pixels: up to
-64 one block a tile, above that a thread block cluster of row bands that
-keeps the reference's whole-tile exit test (`csrc/composite.cuh`).
+Both CUDA compositors take any tile: up to 64 px one block a tile, up to
+256 a thread block cluster of row bands, and over 256 parts of 32 px in two
+launches (each part walks until its own pixels close and records that
+chunk; then every part resumes to the tile's last such chunk), all of which
+keep the reference's whole-tile exit test (`csrc/composite.cuh`).
 
 `composite_tiles` is the v1 compositor over the unquantized `EntryPlanes`
 (the JAX `composite_tiles`): kernel K6 (`csrc/composite_v1.cu`) on CUDA
@@ -43,10 +45,10 @@ T_EPS = 1.0 / 255.0
 FLAT_POWER_CUTOFF = -2.0  # ellipse/point: flat fill inside the 2-sigma boundary
 LOG2E = 1.4426950408889634
 _TILES_PER_STEP = 256
-# The largest tile K3 and K6 take: 4 pixels a thread, so a tile of 256 px is
-# a cluster of 16 blocks of 1024 threads, the most a Hopper cluster holds
-# (csrc/composite.cuh). The plain versions take any tile.
-MAX_CUDA_TILE = 256
+# Tiles over this size run on the card as parts of _PART px in two launches
+# (csrc/composite.cuh: kMaxClusterTile, kPart).
+_MAX_CLUSTER_TILE = 256
+_PART = 32
 # The launchers' answer when cudaOccupancyMaxActiveClusters finds no place on
 # the card for one tile's cluster of blocks (csrc/composite.cuh).
 _NO_CLUSTER = -2
@@ -151,14 +153,22 @@ def composite_tiles_plain(planes: EntryPlanes, cfg: TileConfig, flat_mode: bool 
 
 
 def _require_tile(cfg: TileConfig) -> None:
-    if not 1 <= cfg.tile <= MAX_CUDA_TILE:
-        raise ValueError(f"tile {cfg.tile}: the CUDA compositors take tiles of 1 to "
-                         f"{MAX_CUDA_TILE} pixels")
+    if cfg.tile < 1:
+        raise ValueError(f"tile {cfg.tile}: the CUDA compositors take tiles of 1 pixel or more")
+
+
+def _part_scratch(cfg: TileConfig, device) -> torch.Tensor | None:
+    """The exit chunks of a two-launch tile over _MAX_CLUSTER_TILE px: each
+    tile's, then each of its parts' (zeros); None for smaller tiles."""
+    if cfg.tile <= _MAX_CLUSTER_TILE:
+        return None
+    parts = (-(-cfg.tile // _PART)) ** 2
+    return torch.zeros(cfg.n_tiles * (1 + parts), dtype=torch.int32, device=device)
 
 
 def _check_launch(rc: int, name: str, cfg: TileConfig) -> None:
-    """Raise on a launcher's error; tiles over 64 px run as a thread block
-    cluster, which the card may have no place for."""
+    """Raise on a launcher's error; tiles of 65 to 256 px run as a thread
+    block cluster, which the card may have no place for."""
     if rc == _NO_CLUSTER:
         blocks = -(-cfg.tile * -(-cfg.tile // 4) // 1024)  # composite.cuh::bands_for
         raise RuntimeError(f"{name}: tile {cfg.tile} needs a cluster of {blocks} blocks of up "
@@ -175,12 +185,13 @@ def _composite_tiles_v1_cuda(planes: EntryPlanes, cfg: TileConfig,
     kernels.require(planes.row_starts, "row_starts", torch.int32, (cfg.n_tiles,), ent.device)
     kernels.require(planes.tile_counts, "tile_counts", torch.int32, (cfg.n_tiles,), ent.device)
     out = torch.empty((cfg.height, cfg.width, 4), dtype=torch.float32, device=ent.device)
+    scratch = _part_scratch(cfg, ent.device)
     p = kernels.ptr
     _check_launch(lib.gs_composite_v1(p(ent), ent.shape[1], p(planes.row_starts),
                                       p(planes.tile_counts), cfg.n_tiles, cfg.tile, cfg.tiles_x,
-                                      cfg.width, cfg.height, int(flat_mode), p(out),
-                                      kernels.stream()), "gs_composite_v1", cfg)
-    kernels.LAUNCHES["composite_v1"] += 1
+                                      cfg.width, cfg.height, int(flat_mode), p(scratch),
+                                      p(out), kernels.stream()), "gs_composite_v1", cfg)
+    kernels.LAUNCHES["composite_v1"] += 1 if scratch is None else 2
     return out
 
 
@@ -281,12 +292,13 @@ def _composite_tiles_cuda(entries: SortedEntries, cfg: TileConfig, flat_mode: bo
     kernels.require(entries.tile_starts, "tile_starts", torch.int32, (cfg.n_tiles,), ent.device)
     kernels.require(entries.tile_counts, "tile_counts", torch.int32, (cfg.n_tiles,), ent.device)
     out = torch.empty((cfg.height, cfg.width, 4), dtype=torch.float32, device=ent.device)
+    scratch = _part_scratch(cfg, ent.device)
     p = kernels.ptr
     _check_launch(lib.gs_composite_v2(p(ent), p(entries.tile_starts), p(entries.tile_counts),
                                       cfg.n_tiles, cfg.tile, cfg.tiles_x, cfg.width, cfg.height,
-                                      int(flat_mode), int(mxu and not flat_mode), p(out),
-                                      kernels.stream()), "gs_composite_v2", cfg)
-    kernels.LAUNCHES["composite"] += 1
+                                      int(flat_mode), int(mxu and not flat_mode), p(scratch),
+                                      p(out), kernels.stream()), "gs_composite_v2", cfg)
+    kernels.LAUNCHES["composite"] += 1 if scratch is None else 2
     return out
 
 
