@@ -16,7 +16,11 @@ Phases, each printing what it found:
      one config-2 model (ranks 0 and 2), also slot for slot against K1; K1
      with a model rank at the config-2 shapes (and its bound); K3 also at
      tiles 64 (one block of 1024 threads a tile), 128 (a cluster of 4 row
-     bands) and 320 (32-px parts in two launches) on the config-1 scene;
+     bands) and 320 (32-px parts in two launches) on the config-1 scene.
+     K1 and K5 are timed three ways (`wrapper_times`: events around the
+     wrapper, the kernel alone under torch.profiler, the host's time to
+     issue a call), with ptxas's registers and spills of each of their
+     instantiations;
   3. the golden fixture rendered through the port's CLI on cuda, held to the
      repo's golden gate (`tests/test_golden.py::assert_golden_close`);
   4. BASELINE config 1: a 6M-splat scene at 1920x1080, SH degree 3, norm8
@@ -162,7 +166,11 @@ def require(cond, msg: str) -> None:
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() over `reps` runs after one warm-up, by CUDA
-    events on the current stream (host gaps inside fn count)."""
+    events on the current stream. Host gaps inside fn count: every "ms" and
+    "plain_ms" of this script includes the host's time between launches, and
+    where a wrapper's host work outlasts its kernel (K1 and K5 at 1M splats)
+    it is the host's time. The "device_ms" fields (`wrapper_times`) are the
+    kernel alone."""
     import torch
 
     fn()  # warm-up
@@ -230,6 +238,56 @@ def device_kernel_ms(fn, reps: int) -> tuple:
         launches.setdefault(e.name, []).append(ms)
     require(per_name, "the profiler saw no device time")
     return per_name, launches
+
+
+def wrapper_times(fn, part: str, reps: int = 20) -> dict:
+    """A kernel wrapper's time three ways: `ms` by CUDA events around
+    back-to-back calls (`cuda_ms`), `device_ms` the one kernel whose name
+    holds `part` alone under torch.profiler, and `host_ms` the host's time to
+    issue one call (no synchronise inside the timed calls)."""
+    import torch
+
+    per_name, launches = device_kernel_ms(fn, reps)
+    names = [k for k in per_name if part in k]
+    require(len(names) == 1, f"kernel {part}: {names} among {sorted(per_name)}")
+    # The mean over the launches the profiler kept: late in a long process
+    # it has kept fewer than `reps`.
+    seen = launches[names[0]]
+    if len(seen) != reps:
+        log(f"  (the profiler kept {len(seen)} of {reps} launches of {part})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    return {"ms": cuda_ms(fn, reps), "device_ms": sum(seen) / len(seen), "host_ms": host,
+            "device_launches_seen": len(seen)}
+
+
+def ptxas_rows(part: str, usage: dict = None) -> dict:
+    """ptxas's registers, stack frame and spill bytes (`usage`, by default
+    this process's build: `kernels.resource_usage`) of each instantiation of
+    the kernel whose mangled name holds `part`, by its template arguments;
+    empty when the library was built by another process."""
+    import re
+
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import kernels
+
+    rows = {}
+    for name, u in sorted((kernels.resource_usage if usage is None else usage).items()):
+        if part in name and "registers" in u:
+            args = re.findall(r"L[ib](\d+)E", name.split(part, 1)[1].split("EEv")[0])
+            rows[f"{part}<{','.join(args)}>"] = u
+    return rows
+
+
+def log_ptxas(what: str, rows: dict) -> None:
+    for label, u in rows.items():
+        log(f"phase 2 {what} {label}: {u['registers']} registers, {u.get('stack', 0)} B stack "
+            f"frame, {u.get('spill_stores', 0)} B spill stores, {u.get('spill_loads', 0)} B spill "
+            f"loads (ptxas)")
+    if not rows:
+        log(f"phase 2 {what}: no ptxas report (the library was built by another process)")
 
 
 def k2_kernel_report(sort, e: int, n_live: int, n_tiles: int) -> dict:
@@ -415,14 +473,17 @@ def phase_kernels(g1, cam1, g3, cam3, device) -> dict:
     st = compare_entries(ent_k, ent_p, cfg)
     del ent_p
     b_ms, b_by = k1_bound(pod, ent_k, {}, n, cfg.max_dup, 15)
-    rec["fused"] = {"max_abs_err": st["max_field_step"],
-                    "ms": cuda_ms(lambda: enumerate_entries_fused(*args), 20),
+    t = wrapper_times(lambda: enumerate_entries_fused(*args), "fused_frontend_kernel")
+    rec["fused"] = {"max_abs_err": st["max_field_step"], **t,
                     "plain_ms": cuda_ms(lambda: enumerate_entries_plain(*args), 2),
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     log(f"phase 2 K1 front-end: {n} splats, {st['live_a']} live entries, "
         f"{st['identical']:.6f} identical to plain, {st['differing']} within one step; "
-        f"kernel {rec['fused']['ms']:.3f} ms, plain {rec['fused']['plain_ms']:.3f} ms, "
-        f"bound {b_ms:.3f} ms ({b_by})")
+        f"kernel {t['ms']:.4f} ms by events around the wrapper ({t['device_ms']:.4f} device "
+        f"only, {t['host_ms']:.4f} host to issue), plain {rec['fused']['plain_ms']:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    rec["fused"]["ptxas"] = ptxas_rows("fused_frontend_kernel")
+    log_ptxas("K1 (SH 0 f32 1 f16 2 norm8 3 none, cov 0 f32 1 f16, gated)", rec["fused"]["ptxas"])
 
     # K1 with every gate, same shapes.
     gkw = gates(n, device)
@@ -431,7 +492,8 @@ def phase_kernels(g1, cam1, g3, cam3, device) -> dict:
     require(not torch.equal(ent_g, ent_k), "the gates changed no entry")
     del ent_g
     gb_ms, _ = k1_bound(pod, ent_k, gkw, n, cfg.max_dup, 15)
-    gated = {"gated_ms": cuda_ms(lambda: enumerate_entries_fused(*args, **gkw), 20),
+    t = wrapper_times(lambda: enumerate_entries_fused(*args, **gkw), "fused_frontend_kernel")
+    gated = {**{f"gated_{k}": v for k, v in t.items()},
              "gated_plain_ms": cuda_ms(lambda: enumerate_entries_plain(*args, **gkw), 2),
              "gated_bound_ms": gb_ms, "gated_max_abs_err": stg["max_field_step"]}
     rec["fused"].update(gated)
@@ -439,8 +501,8 @@ def phase_kernels(g1, cam1, g3, cam3, device) -> dict:
     del gkw
     log(f"phase 2 K1 gated (mask, edits, selection edit, highlight): {stg['live_a']} live "
         f"entries, {stg['identical']:.6f} identical to plain, {stg['differing']} within one step; "
-        f"kernel {gated['gated_ms']:.3f} ms, plain {gated['gated_plain_ms']:.3f} ms, "
-        f"bound {gb_ms:.3f} ms")
+        f"kernel {t['ms']:.4f} ms ({t['device_ms']:.4f} device only, {t['host_ms']:.4f} host), "
+        f"plain {gated['gated_plain_ms']:.3f} ms, bound {gb_ms:.4f} ms")
 
     # K2, row for row against the stable plain sort.
     se_k = sort_entries(ent_k, cfg)
@@ -578,8 +640,9 @@ def phase_kernels_staged(g1, cam1, model2, device, rec: dict) -> None:
     require(st["slots_differing"] == 0 or st["max_field_step"] <= 1, f"K5 vs plain: {st}")
     st1 = slot_stats(ent5, enumerate_entries_fused(pod, comp, cfg, view, proj, eye), cfg)
     b6_ms, b6_by = k5_bound(pre, ent5, n, cfg.max_dup)
+    t = wrapper_times(lambda: enumerate_entries_from_pre(pre, cfg), "enum_pack_kernel")
     k5 = {"max_abs_err": st["max_field_step"],
-          "config1_ms": cuda_ms(lambda: enumerate_entries_from_pre(pre, cfg), 20),
+          **{f"config1_{k}": v for k, v in t.items()},
           "config1_plain_ms": cuda_ms(lambda: enumerate_entries_from_pre_plain(pre, cfg), 2),
           "config1_bound_ms": b6_ms,
           "config1_preprocess_plain_ms": cuda_ms(
@@ -588,8 +651,9 @@ def phase_kernels_staged(g1, cam1, model2, device, rec: dict) -> None:
         f"entries, {st['slots_differing']} of {ent5.shape[0]} slots differ from plain (max field "
         f"step {st['max_field_step']}); vs K1 on the same scene and camera: "
         f"{st1['slots_differing']} slots differ, {st1['identical']:.6f} of live slots identical, "
-        f"max field step {st1['max_field_step']}; kernel {k5['config1_ms']:.3f} ms, plain "
-        f"{k5['config1_plain_ms']:.3f} ms, bound {b6_ms:.3f} ms ({b6_by}); the plain preprocess "
+        f"max field step {st1['max_field_step']}; kernel {t['ms']:.4f} ms ({t['device_ms']:.4f} "
+        f"device only, {t['host_ms']:.4f} host), plain {k5['config1_plain_ms']:.3f} ms, bound "
+        f"{b6_ms:.4f} ms ({b6_by}); the plain preprocess "
         f"before it {k5['config1_preprocess_plain_ms']:.3f} ms")
     del pre, ent5, pod
 
@@ -617,13 +681,18 @@ def phase_kernels_staged(g1, cam1, model2, device, rec: dict) -> None:
         log(f"phase 2 K5, one config-2 model, rank {rank} of model_bits 2: {n} splats, "
             f"{st['live_a']} live entries, {st['slots_differing']} slots differ from plain")
     b_ms, b_by = k5_bound(pre, ent5, n, cfg_m.max_dup)
-    k5.update({"ms": cuda_ms(lambda: enumerate_entries_from_pre(pre, cfg_m, model_rank=2), 20),
+    t = wrapper_times(lambda: enumerate_entries_from_pre(pre, cfg_m, model_rank=2),
+                      "enum_pack_kernel")
+    k5.update({**t,
                "plain_ms": cuda_ms(
                    lambda: enumerate_entries_from_pre_plain(pre, cfg_m, model_rank=2), 3),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     rec["enum_pack"] = k5
-    log(f"phase 2 K5 at the config-2 shapes: kernel {k5['ms']:.3f} ms, plain "
-        f"{k5['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"phase 2 K5 at the config-2 shapes: kernel {t['ms']:.4f} ms ({t['device_ms']:.4f} "
+        f"device only, {t['host_ms']:.4f} host), plain {k5['plain_ms']:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    k5["ptxas"] = ptxas_rows("enum_pack_kernel")
+    log_ptxas("K5", k5["ptxas"])
     del pre, ent5
 
     # K1 with rank 1 of model_bits 2 and the model's edits, against plain.
@@ -634,15 +703,17 @@ def phase_kernels_staged(g1, cam1, model2, device, rec: dict) -> None:
     require(bool(((keys[keys != 0xFFFFFFFF] >> cfg_m._rank_shift) & 3 == 1).all()),
             "ranked K1: a live key without rank 1")
     rec["fused"]["max_abs_err"] = max(rec["fused"]["max_abs_err"], st["max_field_step"])
-    rec["fused"]["config2_ranked_ms"] = cuda_ms(
-        lambda: enumerate_entries_fused(*args, model_rank=1, edit=edit), 20)
+    t = wrapper_times(lambda: enumerate_entries_fused(*args, model_rank=1, edit=edit),
+                      "fused_frontend_kernel")
+    rec["fused"].update({f"config2_ranked_{k}": v for k, v in t.items()})
     rec["fused"]["config2_ranked_plain_ms"] = cuda_ms(
         lambda: enumerate_entries_plain(*args, model_rank=1, edit=edit), 3)
     rb_ms, rb_by = k1_bound(pod, ent1, {"edit": edit}, n, cfg_m.max_dup, 15)
     rec["fused"]["config2_ranked_bound_ms"] = rb_ms
     log(f"phase 2 K1 with model rank 1 of model_bits 2 (one config-2 model, edits on): "
         f"{st['live_a']} live entries, {st['slots_differing']} slots differ from plain, "
-        f"{st['identical']:.6f} identical; kernel {rec['fused']['config2_ranked_ms']:.3f} ms, "
+        f"{st['identical']:.6f} identical; kernel {t['ms']:.4f} ms ({t['device_ms']:.4f} device "
+        f"only, {t['host_ms']:.4f} host), "
         f"plain {rec['fused']['config2_ranked_plain_ms']:.3f} ms, bound {rb_ms:.4f} ms ({rb_by}: "
         f"pod words, edit SoA and {ent1.shape[0]} entry slots)")
 

@@ -1,25 +1,39 @@
 #!/usr/bin/env python3
-"""Old against new on one card: the compositors K3 and K6 and the config-1
-frame of this tree against those of another checkout of the port (the
-parent commit, unpacked with `git archive` under a git-ignored directory),
-on the same inputs, timed in turns (other, this, this, other).
+"""Old against new on one card: the front-end kernels K1 and K5, the
+compositors K3 and K6 and the config-1 frame of this tree against those of
+another checkout of the port (the parent commit, unpacked with `git
+archive` under a git-ignored directory), on the same inputs, timed in turns
+(other, this, this, other).
 
     mkdir -p _archive/parent && git archive <commit> | tar -x -C _archive/parent
-    python3 scripts/ab_port_kernels.py --parent _archive/parent
+    python3 scripts/ab_port_kernels.py --parent _archive/parent [--parts frontend,frame]
 
 The other checkout's package is imported under another name, so both kernel
-libraries are built and loaded in one process. Each time is the mean of 20
-calls by CUDA events (`chip_smoke.cuda_ms`). K3 runs on the config-1 and
-config-2 sorted entries at tile 32 in every mode of `composite_tiles_v2`
-that differs on the card: transposed Horner (the viewer's call), row-major
-Horner and the quadratic basis (`mxu`); K6 on the config-1 EntryPlanes at
-tiles 32, 64 and 128 and in flat mode on the config-0 shapes, and at tile
-32 also with each of its layouts forced (1 and 4 pixels a thread, this
-tree only). The two trees' images must agree within 1e-4; whether they are
-equal bit for bit is printed. Last, the config-1
-frame through each tree's `Viewer.render`, 5 frames after 2 warm-ups by the
-host clock, in turns. Prints one line per comparison, the card's name and
-power limit, and a JSON record as the last line. Needs a CUDA device.
+libraries are built and loaded in one process. `--parts` picks what runs
+(default all):
+- frontend: K1 ungated and gated (every gate) on the config-1 scene (6M
+  splats), K1 with model rank 1 of model_bits 2 and the model's edits on one
+  config-2 model (1M), K5 on the plain preprocess of both (6M at rank 0, 1M
+  at rank 2 of model_bits 2), and K4, which shares splat.cuh with K1, on
+  the config-3 scene (2M, ungated and with the mask and edit gates). The
+  two trees' outputs must be equal bit for bit. Each is timed three ways
+  (`chip_smoke.wrapper_times`): CUDA events around 20 calls of the
+  wrapper, the kernel alone under torch.profiler, and the host's time to
+  issue a call. Also ptxas's registers and spills of both trees' K1 and K5
+  (each tree's fused.cu and enum_pack.cu compiled with this tree's flags).
+- compositors: K3 on the config-1 and config-2 sorted entries at tile 32 in
+  every mode of `composite_tiles_v2` that differs on the card: transposed
+  Horner (the viewer's call), row-major Horner and the quadratic basis
+  (`mxu`); K6 on the config-1 EntryPlanes at tiles 32, 64 and 128 and in
+  flat mode on the config-0 shapes, and at tile 32 also with each of its
+  layouts forced (1 and 4 pixels a thread, this tree only). Each time is
+  the mean of 20 calls by CUDA events (`chip_smoke.cuda_ms`). The two
+  trees' images must agree within 1e-4; whether they are equal bit for bit
+  is printed.
+- frame: the config-1 frame through each tree's `Viewer.render`, 5 frames
+  after 2 warm-ups by the host clock, in turns.
+Prints one line per comparison, the card's name and power limit, and a JSON
+record as the last line. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -102,24 +116,146 @@ def layouts(ops, name: str, planes, cfg, flat: bool = False) -> dict:
     return r
 
 
-def main() -> int:
+def bit_equal(a, b) -> bool:
+    """Tensors, or dataclasses of tensors field by field, equal bit for bit."""
+    import dataclasses
+
+    import torch
+
+    if dataclasses.is_dataclass(a):
+        return all(bit_equal(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    return bool(torch.equal(a, b))
+
+
+def entries_ab(name: str, other, this, part: str) -> dict:
+    """The two trees' outputs, which must be equal bit for bit, and their
+    times in turns (`chip_smoke.wrapper_times`); prints one line."""
+    import chip_smoke
+
+    equal = bit_equal(other(), this())
+    print(f"{name}: this tree's output equals the other's bit for bit: {equal}", flush=True)
+    if not equal:
+        raise AssertionError(f"{name}: the output differs from the other tree's")
+    t = [chip_smoke.wrapper_times(f, part) for f in (other, this, this, other)]
+    r = {f"{side}_{k}": [t[i][k], t[j][k]] for side, (i, j) in (("other", (0, 3)),
+                                                                ("this", (1, 2)))
+         for k in ("ms", "device_ms", "host_ms")}
+    r["bit_equal"] = equal
+    print(f"{name}: device only: other {r['other_device_ms']}, this {r['this_device_ms']} ms; "
+          f"events around the wrapper: other {r['other_ms']}, this {r['this_ms']} ms; host to "
+          f"issue: other {r['other_host_ms']}, this {r['this_host_ms']} ms", flush=True)
+    return r
+
+
+def ptxas_report(root: str) -> dict:
+    """ptxas's registers and spills of K1 and K5 in the checkout at `root`."""
+    import tempfile
+    from pathlib import Path
+
+    import chip_smoke
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import kernels
+
+    csrc = Path(root) / PKG / "csrc"
+    srcs = [csrc / "fused.cu", csrc / "enum_pack.cu"]
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        usage = kernels.compile_objects(srcs, [Path(tmp) / f"{p.stem}.o" for p in srcs])
+    rows = {**chip_smoke.ptxas_rows("fused_frontend_kernel", usage),
+            **chip_smoke.ptxas_rows("enum_pack_kernel", usage)}
+    for label, u in rows.items():
+        print(f"ptxas, {root}: {label}: {u['registers']} registers, {u.get('stack', 0)} B "
+              f"stack, {u.get('spill_stores', 0)} B spill stores, {u.get('spill_loads', 0)} B "
+              f"spill loads", flush=True)
+    return rows
+
+
+def other_comp(comp):
+    """`comp` as the other checkout's Compressions (its wrappers key on their
+    own enums)."""
+    d = importlib.import_module("other_port.data")
+    return d.Compressions(d.ShCompression(comp.sh.value), d.Cov3dCompression(comp.cov3d.value))
+
+
+def frontend(old, ops, parent: str) -> dict:
+    """K1 and K5, old against new (see the module's docstring)."""
     import numpy as np
     import torch
 
     import chip_smoke
-    from wgpu_3dgs_viewer_app_tpu_torch import ops
+    from wgpu_3dgs_viewer_app_tpu_torch.core import ModelTransform
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent", required=True, help="root of the other checkout")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("ab_port_kernels: no CUDA device", file=sys.stderr)
-        return 1
-    old = load_other(args.parent)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
-                          "-i", "0"], capture_output=True, text=True, check=True).stdout.strip()
-    ops.kernels.library()
-    old.kernels.library()
+    rec = {"ptxas": {"other": ptxas_report(parent), "this": ptxas_report(REPO)}}
+    eye = np.eye(4, dtype=np.float32)
+    g1, cam1 = chip_smoke.config1_scene()
+    comp, pod = chip_smoke.pod_tensors(g1, "cuda")
+    n = g1.count
+    del g1
+    cfg1 = ops.TileConfig(1920, 1080, tile=32, max_dup=4)
+    args = (pod, comp, cfg1, cam1.view(), cam1.projection(1920 / 1080), eye)
+    oargs = (pod, other_comp(comp), *args[2:])
+    k1 = "fused_frontend_kernel"
+    rec["k1_config1"] = entries_ab("K1 ungated, config 1 (6M)",
+                                   lambda: old.enumerate_entries_fused(*oargs),
+                                   lambda: ops.enumerate_entries_fused(*args), k1)
+    gkw = chip_smoke.gates(n, "cuda")
+    rec["k1_config1_gated"] = entries_ab("K1 gated (every gate), config 1 (6M)",
+                                         lambda: old.enumerate_entries_fused(*oargs, **gkw),
+                                         lambda: ops.enumerate_entries_fused(*args, **gkw), k1)
+    del gkw
+    pre = ops.preprocess(pod, comp, *args[3:], 1920, 1080)
+    rec["k5_config1"] = entries_ab("K5, config-1 scene (6M)",
+                                   lambda: old.enumerate_entries_from_pre(pre, cfg1),
+                                   lambda: ops.enumerate_entries_from_pre(pre, cfg1),
+                                   "enum_pack_kernel")
+    del pre, pod, args, oargs
+    torch.cuda.empty_cache()
+
+    model2 = chip_smoke.config2_models()[1]
+    w, h = chip_smoke.CONFIG2_SIZE
+    comp, pod = chip_smoke.pod_tensors(model2, "cuda")
+    cam = chip_smoke.config2_camera()
+    dx, rot = chip_smoke.CONFIG2_PLACEMENTS[1]
+    mmat = ModelTransform(pos=np.float32([dx, 0, 0]), rot=np.float32([0, rot, 0])).matrix()
+    flags, rgb, params = chip_smoke.config2_edit(model2.count, 1)
+    edit = tuple(torch.from_numpy(a).to("cuda") for a in (flags.view(np.int32), rgb, params))
+    cfg_m = ops.TileConfig(w, h, tile=32, max_dup=4, model_bits=2)
+    args = (pod, comp, cfg_m, cam.view(), cam.projection(w / h), mmat)
+    oargs = (pod, other_comp(comp), *args[2:])
+    rec["k1_config2_ranked"] = entries_ab(
+        "K1 rank 1 of model_bits 2 + edits, one config-2 model (1M)",
+        lambda: old.enumerate_entries_fused(*oargs, model_rank=1, edit=edit),
+        lambda: ops.enumerate_entries_fused(*args, model_rank=1, edit=edit), k1)
+    pre = ops.preprocess(pod, comp, *args[3:], w, h, edit=edit)
+    rec["k5_config2"] = entries_ab(
+        "K5 rank 2 of model_bits 2, one config-2 model (1M)",
+        lambda: old.enumerate_entries_from_pre(pre, cfg_m, model_rank=2),
+        lambda: ops.enumerate_entries_from_pre(pre, cfg_m, model_rank=2), "enum_pack_kernel")
+    del pre, pod
+    torch.cuda.empty_cache()
+
+    # K4 shares splat.cuh with K1: the config-3 shapes, ungated and gated.
+    g3, cam3 = chip_smoke.config3_scene()
+    comp, pod = chip_smoke.pod_tensors(g3, "cuda")
+    g4 = {k: v for k, v in chip_smoke.gates(g3.count, "cuda", seed=5).items()
+          if k in ("mask_bits", "edit")}
+    args = (pod, comp, cam3.view(), cam3.projection(1920 / 1080), eye, 1920, 1080)
+    oargs = (pod, other_comp(comp), *args[2:])
+    for key, kw in (("k4_config3", {}), ("k4_config3_gated", g4)):
+        rec[key] = entries_ab(
+            f"K4 query geometry{' gated (mask, edits)' if kw else ''}, config 3 (2M)",
+            lambda: old.preprocess_geometry_fused(*oargs, **kw),
+            lambda: ops.preprocess_geometry_fused(*args, **kw), "geometry_kernel")
+    del pod, g4
+    torch.cuda.empty_cache()
+    return rec
+
+
+def compositors(old, ops, smi: str) -> dict:
+    """K3 and K6, old against new (see the module's docstring)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
 
     g1, cam1 = chip_smoke.config1_scene()
     comp, pod = chip_smoke.pod_tensors(g1, "cuda")
@@ -170,8 +306,15 @@ def main() -> int:
     rec["config0_flat_k6"]["layouts"] = layouts(ops, "config0 flat", planes0, cfg0, flat=True)
     del planes0, pod0
     torch.cuda.empty_cache()
-    # The config-1 frame through each tree's Viewer.render, in turns.
+    return rec
+
+
+def frame(old) -> dict:
+    """The config-1 frame through each tree's `Viewer.render`, in turns."""
+    import chip_smoke
     from wgpu_3dgs_viewer_app_tpu_torch.viewer import Viewer
+
+    g1, cam1 = chip_smoke.config1_scene()
     old_viewer = importlib.import_module("other_port.viewer")
     views = {"other": old_viewer.Viewer(g1, 1920, 1080, tile=32, max_dup=4, device="cuda"),
              "this": Viewer(g1, 1920, 1080, tile=32, max_dup=4, device="cuda")}
@@ -180,10 +323,43 @@ def main() -> int:
         ms = chip_smoke.timed_frames(lambda: views[side].render(cam1))[0]
         frames[side].append(ms)
     d = float((views["this"].render(cam1) - views["other"].render(cam1)).abs().max())
-    rec["config1_frame"] = {"other_ms": frames["other"], "this_ms": frames["this"],
-                            "vs_other_max": d}
+    rec = {"other_ms": frames["other"], "this_ms": frames["this"], "vs_other_max": d}
     print(f"config1 frame (Viewer.render, 5 frames after 2 warm-ups): other {frames['other']}, "
           f"this {frames['this']} ms; images max abs {d:.3e}", flush=True)
+    return rec
+
+
+def main() -> int:
+    import torch
+
+    from wgpu_3dgs_viewer_app_tpu_torch import ops
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", required=True, help="root of the other checkout")
+    ap.add_argument("--parts", default="frontend,compositors,frame",
+                    help="comma-separated: frontend, compositors, frame")
+    args = ap.parse_args()
+    parts = set(args.parts.split(","))
+    if not parts <= {"frontend", "compositors", "frame"}:
+        ap.error(f"unknown parts in {args.parts}")
+    if not torch.cuda.is_available():
+        print("ab_port_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    old = load_other(args.parent)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          "-i", "0"], capture_output=True, text=True, check=True).stdout.strip()
+    ops.kernels.library()
+    old.kernels.library()
+    print(f"kernel build seconds (nvcc, all sources at once): other {old.kernels.build_seconds}, "
+          f"this {ops.kernels.build_seconds}", flush=True)
+
+    rec = {}
+    if "frontend" in parts:
+        rec["frontend"] = frontend(old, ops, args.parent)
+    if "compositors" in parts:
+        rec.update(compositors(old, ops, smi))
+    if "frame" in parts:
+        rec["config1_frame"] = frame(old)
     print(smi)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "smi": smi, **rec}))
     return 0

@@ -2,7 +2,9 @@
 on the same CUDA tensors (the front-end K1 ungated and gated, the entry
 sort K2 row for row, the v2 compositor K3 in every mode of its wrapper
 (Horner and quadratic-basis exponent, flat, both `transposed`), the query
-geometry K4, the enumerate-and-pack kernel K5, K1 with a model rank), the
+geometry K4, the enumerate-and-pack kernel K5, K1 with a model rank; K1
+and K5 also on fewer splats than one block, one over a block boundary and
+into a row slice of a larger tensor), the
 wrappers' input checks, and the whole slice on the card against the CPU,
 the merged multi-model frame included; the v1 chain's sort (K2 at the v1
 key layout) and compositor K6; K3 and K6 at tiles over 32 px (one block up
@@ -78,14 +80,30 @@ def _camera(w, h, pos=(0.3, 0.2, -6.0)):
     return cam.view(), cam.projection(w / h)
 
 
+def _check_into_slice(write, want):
+    """`write(out)` into rows 5 .. 5 + len(want) of a larger tensor (80 bytes
+    in: aligned to 16 bytes, not to 128) gives `want` there and leaves the
+    rows before and after as they were."""
+    fill, e = 0x5A5A5A5A, want.shape[0]
+    big = torch.full((e + 12, 4), fill, dtype=torch.int32, device=want.device)
+    part = big[5:5 + e]
+    assert write(part).data_ptr() == part.data_ptr()
+    assert torch.equal(part, want)
+    assert bool((big[:5] == fill).all()) and bool((big[5 + e:] == fill).all())
+
+
 @pytest.mark.parametrize("ci", range(8), ids=lambda i: f"{ALL_COMPRESSIONS[i].sh.value}-"
                                                       f"{ALL_COMPRESSIONS[i].cov3d.value}")
-@pytest.mark.parametrize("deg,mode,d", [(3, 0, 4), (1, 1, 8), (0, 2, 4), (2, 0, 16)])
-def test_frontend_kernel_matches_plain(dev, ci, deg, mode, d):
+@pytest.mark.parametrize("deg,mode,d,n", [
+    (3, 0, 4, 20000), (1, 1, 8, 20000), (0, 2, 4, 20000), (2, 0, 16, 20000),
+    (3, 0, 4, 100), (3, 0, 8, 257), (3, 1, 16, 129), (3, 0, 20, 1000)])
+def test_frontend_kernel_matches_plain(dev, ci, deg, mode, d, n):
     """K1 vs plain preprocess + enumerate: all compressions, SH 0-3, the
-    three display modes, several max_dup."""
+    three display modes, several max_dup (20: two rounds of the block's
+    stage), fewer splats than one block and one over a block boundary;
+    written into a row slice of a larger tensor whose other rows stay."""
     comp = ALL_COMPRESSIONS[ci]
-    pod = _pod(comp, 20000, dev, seed=ci)
+    pod = _pod(comp, n, dev, seed=ci)
     cfg = TileConfig(1920, 1080, tile=32, max_dup=d)
     view, proj = _camera(1920, 1080)
     before = kernels.LAUNCHES["fused"]
@@ -95,7 +113,11 @@ def test_frontend_kernel_matches_plain(dev, ci, deg, mode, d):
     ref = enumerate_entries_plain(pod, comp, cfg, view, proj, EYE, sh_degree=deg,
                                   display_mode=mode)
     stats = compare_entries(got, ref, cfg)
-    assert stats["live_a"] > 1000, stats
+    assert stats["live_a"] > n // 20, stats
+    _check_into_slice(lambda out: enumerate_entries_fused(pod, comp, cfg, view, proj, EYE,
+                                                          sh_degree=deg, display_mode=mode,
+                                                          out=out), got)
+
 
 
 SEL_EDIT = tedit.GaussianEditPod(tedit.EDIT_FLAG_ENABLED, (0.15, 1.2, 1.0), 0.1, 0.2, 1.0, 0.8)
@@ -127,22 +149,27 @@ def _gates(n, dev, which, seed=3):
 
 
 @pytest.mark.parametrize("pattern", list(GATE_PATTERNS))
-def test_gated_frontend_kernel_matches_plain(dev, pattern):
+@pytest.mark.parametrize("n,d", [(20000, 4), (100, 8), (257, 16)])
+def test_gated_frontend_kernel_matches_plain(dev, pattern, n, d):
     """Gated K1 vs the gated plain preprocess + enumerate, each gate alone
-    and together (default compression, SH 3, 1080p, tile 32, max_dup 4)."""
+    and together (default compression, SH 3, 1080p, tile 32), at max_dup 4,
+    8 and 16, fewer splats than one block and one over a block boundary;
+    also into a row slice of a larger tensor."""
     comp = ALL_COMPRESSIONS[5]
-    pod = _pod(comp, 20000, dev, seed=7)
-    cfg = TileConfig(1920, 1080, tile=32, max_dup=4)
+    pod = _pod(comp, n, dev, seed=7)
+    cfg = TileConfig(1920, 1080, tile=32, max_dup=d)
     view, proj = _camera(1920, 1080)
-    gates = _gates(20000, dev, GATE_PATTERNS[pattern])
+    gates = _gates(n, dev, GATE_PATTERNS[pattern])
     before = kernels.LAUNCHES["fused"]
     got = enumerate_entries_fused(pod, comp, cfg, view, proj, EYE, **gates)
     assert kernels.LAUNCHES["fused"] == before + 1
     ref = enumerate_entries_plain(pod, comp, cfg, view, proj, EYE, **gates)
     stats = compare_entries(got, ref, cfg)
-    assert stats["live_a"] > 1000, stats
+    assert stats["live_a"] > n // 20, stats
     ungated = enumerate_entries_fused(pod, comp, cfg, view, proj, EYE)
     assert not torch.equal(got, ungated)
+    _check_into_slice(lambda out: enumerate_entries_fused(pod, comp, cfg, view, proj, EYE,
+                                                          out=out, **gates), got)
 
 
 @pytest.mark.parametrize("ci", range(8), ids=lambda i: f"{ALL_COMPRESSIONS[i].sh.value}-"
@@ -423,14 +450,17 @@ def test_gated_viewer_on_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("tile", [16, 32])
-@pytest.mark.parametrize("d", [4, 8, 16])
+@pytest.mark.parametrize("d", [4, 8, 16, 20])
 @pytest.mark.parametrize("bits,rank", [(0, 0), (2, 3)])
-def test_enum_pack_kernel_matches_plain(dev, tile, d, bits, rank):
+@pytest.mark.parametrize("n", [10_007, 100, 129])
+def test_enum_pack_kernel_matches_plain(dev, tile, d, bits, rank, n):
     """K5 vs `enumerate_entries_from_pre_plain` on the same planes, every
-    slot bit for bit: 10,007 splats (not a multiple of the 128-thread block),
-    wide enough to fall partly off screen, a quarter masked out (invalid)."""
+    slot bit for bit: 10,007 splats (not a multiple of the 128-thread
+    block), fewer than one block, and one over a block boundary; max_dup up
+    to 20 (two rounds of the block's stage); wide enough to fall partly off
+    screen, a quarter masked out (invalid); also into a row slice of a
+    larger tensor."""
     comp = ALL_COMPRESSIONS[5]
-    n = 10_007
     pod = _pod(comp, n, dev, seed=4, extent=4.0)
     view, proj = _camera(640, 360, pos=(0.3, 0.2, -4.0))
     mask = torch.from_numpy((np.arange(n) % 4 != 0).astype(np.uint8)).to(dev)
@@ -450,10 +480,8 @@ def test_enum_pack_kernel_matches_plain(dev, tile, d, bits, rank):
     assert bool(((keys[live] >> cfg._rank_shift) & ((1 << bits) - 1) == rank).all())
     dead = got.view(n, d, 4)[~pre.valid]
     assert bool((dead[..., 0] == -1).all()) and int(dead[..., 1:].abs().sum()) == 0
-    out = torch.zeros((n * d + 8, 4), dtype=torch.int32, device=dev)
-    assert enumerate_entries_from_pre(pre, cfg, model_rank=rank, out=out[8:]).data_ptr() == \
-        out[8:].data_ptr()
-    assert torch.equal(out[8:], ref) and int(out[:8].abs().sum()) == 0
+    _check_into_slice(lambda out: enumerate_entries_from_pre(pre, cfg, model_rank=rank,
+                                                             out=out), ref)
     compare_sorted(build_sorted_entries(pre, cfg, model_rank=rank), sort_entries_plain(ref, cfg),
                    stable=True)
 
@@ -480,18 +508,19 @@ def test_enum_pack_rejects_bad_inputs(dev):
 
 
 @pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
-def test_fused_kernel_with_rank_matches_plain(dev, gated):
-    """K1 with a model rank vs its plain version, every live slot; rank 0
-    under model_bits 0 writes the same low bits as before."""
+@pytest.mark.parametrize("n,d", [(30_001, 4), (100, 8), (129, 16)])
+def test_fused_kernel_with_rank_matches_plain(dev, gated, n, d):
+    """K1 with a model rank vs its plain version, every live slot, at
+    max_dup 4, 8 and 16, fewer splats than one block and one over a block
+    boundary; rank 0 under model_bits 0 writes the same low bits as before."""
     comp = ALL_COMPRESSIONS[5]
-    n = 30_001
     pod = _pod(comp, n, dev, seed=2)
     view, proj = _camera(1920, 1088)
     gates = {}
     if gated:
         rng = np.random.default_rng(3)
         gates["mask_bits"] = torch.from_numpy((rng.random(n) > 0.25).astype(np.uint8)).to(dev)
-    cfg = TileConfig(1920, 1088, tile=32, max_dup=4, model_bits=2)
+    cfg = TileConfig(1920, 1088, tile=32, max_dup=d, model_bits=2)
     for rank in (0, 1, 3):
         got = enumerate_entries_fused(pod, comp, cfg, view, proj, EYE, model_rank=rank, **gates)
         ref = enumerate_entries_plain(pod, comp, cfg, view, proj, EYE, model_rank=rank, **gates)

@@ -37,12 +37,13 @@ geometry_kernel(const FrameParams fp, const IntParams ip, const float* __restric
   const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= n) return;
 
-  const SplatGeometry sg = splat_geometry<COV>(fp, ip.display_mode, pos, color0, cov3d, n, s);
+  const SplatGeometry sg =
+      splat_geometry<COV>(fp, ip.display_mode, load_splat<COV>(pos, color0, cov3d, n, s));
   // Degree 0: the colour is the u8 base (queries read geometry only).
   float r = clampf(sg.r, 0.0f, 1.0f), g = clampf(sg.g, 0.0f, 1.0f), b = clampf(sg.b, 0.0f, 1.0f);
   float alpha = sg.alpha;
   bool gate_ok = true;
-  if (GATED) gate_ok = apply_gates(fp, ip, gates, s, r, g, b, alpha);
+  if (GATED) gate_ok = apply_gates(fp, ip, load_gates(ip, gates, s), r, g, b, alpha);
   const float radius = live_radius(ip.display_mode, sg.radius, alpha);
   const bool valid = splat_valid(fp, sg, radius, alpha, gate_ok);
 

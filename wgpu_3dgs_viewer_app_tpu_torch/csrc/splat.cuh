@@ -1,8 +1,9 @@
 // The per-splat section that kernels K1 (fused.cu) and K4 (geometry.cu)
-// share, so the two cannot drift apart: the frame scalars, pod decode ->
-// model/view transform -> projection -> EWA conic and radius, the colour
-// edit, the gates (mask, per-splat edit, selection edit, highlight) and the
-// opacity-aware extent.
+// share, so the two cannot drift apart: the frame scalars, the loads of the
+// pod words and gate records (a kernel issues them all before its
+// arithmetic), pod decode -> model/view transform -> projection -> EWA
+// conic and radius, the colour edit, the gates (mask, per-splat edit,
+// selection edit, highlight) and the opacity-aware extent.
 //
 // Every expression repeats, in order, the plain version in
 // ops/preprocess.py (and core/edit.py::apply_edit_components for the edit);
@@ -62,33 +63,52 @@ struct SplatGeometry {
   float r, g, b, alpha;      // u8 colour0 and opacity
 };
 
+// One splat's pod words, loaded before any arithmetic uses them.
+struct SplatWords {
+  float x, y, z;
+  uint32_t c0;
+  uint32_t cov[6];  // f32 bits (COV_SINGLE) or 3 words of two f16 (COV_HALF)
+};
+
+template <int COV>
+__device__ __forceinline__ SplatWords load_splat(const float* __restrict__ pos,
+                                                 const uint32_t* __restrict__ color0,
+                                                 const void* __restrict__ cov3d, int64_t n,
+                                                 int64_t s) {
+  SplatWords w;
+  w.x = pos[s];
+  w.y = pos[n + s];
+  w.z = pos[2 * n + s];
+  w.c0 = color0[s];
+  const uint32_t* c = static_cast<const uint32_t*>(cov3d);
+#pragma unroll
+  for (int i = 0; i < (COV == COV_SINGLE ? 6 : 3); ++i) w.cov[i] = c[i * n + s];
+  return w;
+}
+
 // Decode -> model/view transform -> projection -> EWA conic and radius.
 template <int COV>
-__device__ __forceinline__ SplatGeometry splat_geometry(
-    const FrameParams& fp, int display_mode, const float* __restrict__ pos,
-    const uint32_t* __restrict__ color0, const void* __restrict__ cov3d, int64_t n, int64_t s) {
+__device__ __forceinline__ SplatGeometry splat_geometry(const FrameParams& fp, int display_mode,
+                                                        const SplatWords& w) {
   SplatGeometry o;
   // --- decode ---
-  const uint32_t c0 = color0[s];
+  const uint32_t c0 = w.c0;
   o.r = gs_u8_unit(c0, 0);
   o.g = gs_u8_unit(c0, 8);
   o.b = gs_u8_unit(c0, 16);
   o.alpha = gs_u8_unit(c0, 24);
   float cv[6];
   if (COV == COV_SINGLE) {
-    const float* c = static_cast<const float*>(cov3d);
 #pragma unroll
-    for (int i = 0; i < 6; ++i) cv[i] = c[i * n + s];
+    for (int i = 0; i < 6; ++i) cv[i] = __uint_as_float(w.cov[i]);
   } else {
-    const uint32_t* c = static_cast<const uint32_t*>(cov3d);
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      const uint32_t w = c[j * n + s];
-      cv[2 * j] = gs_f16_bits_to_f32(w & 0xFFFFu);
-      cv[2 * j + 1] = gs_f16_bits_to_f32(w >> 16);
+      cv[2 * j] = gs_f16_bits_to_f32(w.cov[j] & 0xFFFFu);
+      cv[2 * j + 1] = gs_f16_bits_to_f32(w.cov[j] >> 16);
     }
   }
-  const float x0 = pos[s], y0 = pos[n + s], z0 = pos[2 * n + s];
+  const float x0 = w.x, y0 = w.y, z0 = w.z;
 
   // --- model transform; covariance M Sigma M^T scaled by size^2 ---
   const float* m = fp.m3;
@@ -176,11 +196,14 @@ __device__ __forceinline__ bool apply_edit(float& r, float& g, float& b, float& 
     const float delta = maxc - minc;
     float s = maxc > 0.0f ? delta / fmaxf(maxc, 1e-12f) : 0.0f;
     const float sd = fmaxf(delta, 1e-12f);
-    float hr = (gc - bc) / sd;
-    hr = hr - 6.0f * floorf(hr * (1.0f / 6.0f));
-    const float hg = (bc - rc) / sd + 2.0f;
-    const float hb = (rc - gc) / sd + 4.0f;
-    float h = (maxc == rc ? hr : (maxc == gc ? hg : hb)) * (1.0f / 6.0f);
+    // The plain version computes the hue of all three sectors and keeps the
+    // max channel's; only that one is computed here (one division).
+    const int sector = maxc == rc ? 0 : (maxc == gc ? 1 : 2);
+    const float hq = (sector == 0 ? gc - bc : sector == 1 ? bc - rc : rc - gc) / sd;
+    float h = (sector == 0   ? hq - 6.0f * floorf(hq * (1.0f / 6.0f))
+               : sector == 1 ? hq + 2.0f
+                             : hq + 4.0f) *
+              (1.0f / 6.0f);
     if (!(delta > 0.0f)) h = 0.0f;
     // --- adjust: hue shift, saturation and value scale ---
     h = h + er;
@@ -218,37 +241,56 @@ __device__ __forceinline__ bool apply_edit(float& r, float& g, float& b, float& 
   return (flags & EDIT_HIDDEN) != 0;
 }
 
+// One splat's gate records (those the launch's gate bits name), loaded
+// before any arithmetic uses them.
+struct GateWords {
+  bool mask, sel;
+  uint32_t eflags;
+  float ergb[3], eparams[4];
+};
+
+__device__ __forceinline__ GateWords load_gates(const IntParams& ip, const Gates& gt, int64_t s) {
+  GateWords w{true, false, 0u, {0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+  if (ip.gates & GATE_MASK) w.mask = gt.mask[s] != 0;
+  if (ip.gates & GATE_EDIT) {
+    w.eflags = gt.eflags[s];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) w.ergb[i] = gt.ergb[3 * s + i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w.eparams[i] = gt.eparams[4 * s + i];
+  }
+  if (ip.gates & (GATE_SEL_EDIT | GATE_HIGHLIGHT)) w.sel = gt.sel[s] != 0;
+  return w;
+}
+
 // The gates in the reference order (ops/preprocess.py): mask bit, per-splat
 // edit, selection edit, highlight. Edits change colour and opacity in
-// place; returns false when a gate drops the splat.
+// place; returns false when a gate drops the splat. The two edits run as
+// one loop that is not unrolled, so the edit's code is there once.
 __device__ __forceinline__ bool apply_gates(const FrameParams& fp, const IntParams& ip,
-                                            const Gates& gt, int64_t s, float& r, float& g,
-                                            float& b, float& alpha) {
+                                            const GateWords& gw, float& r, float& g, float& b,
+                                            float& alpha) {
   bool keep = true;
-  if (ip.gates & GATE_MASK) keep = gt.mask[s] != 0;
-  if (ip.gates & GATE_EDIT) {
-    const float* e = gt.ergb + 3 * s;
-    const float* pr = gt.eparams + 4 * s;
-    const bool hidden = apply_edit(r, g, b, alpha, gt.eflags[s], e[0], e[1], e[2], pr[0], pr[1],
-                                   pr[2], pr[3]);
+  if (ip.gates & GATE_MASK) keep = gw.mask;
+  const bool sel = (ip.gates & (GATE_SEL_EDIT | GATE_HIGHLIGHT)) && gw.sel;
+#pragma unroll 1
+  for (int k = 0; k < 2; ++k) {  // 0: the per-splat edit, 1: the selection edit
+    const bool own = k == 0;
+    if (own ? !(ip.gates & GATE_EDIT) : !((ip.gates & GATE_SEL_EDIT) && sel)) continue;
+    const bool hidden = apply_edit(
+        r, g, b, alpha, own ? gw.eflags : (uint32_t)ip.sel_flags,
+        own ? gw.ergb[0] : fp.sel_rgb[0], own ? gw.ergb[1] : fp.sel_rgb[1],
+        own ? gw.ergb[2] : fp.sel_rgb[2], own ? gw.eparams[0] : fp.sel_params[0],
+        own ? gw.eparams[1] : fp.sel_params[1], own ? gw.eparams[2] : fp.sel_params[2],
+        own ? gw.eparams[3] : fp.sel_params[3]);
     keep = keep && !hidden;
   }
-  if (ip.gates & (GATE_SEL_EDIT | GATE_HIGHLIGHT)) {
-    const bool sel = gt.sel[s] != 0;
-    if ((ip.gates & GATE_SEL_EDIT) && sel) {
-      const float* e = fp.sel_rgb;
-      const float* pr = fp.sel_params;
-      const bool hidden = apply_edit(r, g, b, alpha, (uint32_t)ip.sel_flags, e[0], e[1], e[2],
-                                     pr[0], pr[1], pr[2], pr[3]);
-      keep = keep && !hidden;
-    }
-    if ((ip.gates & GATE_HIGHLIGHT) && sel) {  // after the selection edit
-      const float ha = fp.highlight[3];
-      const float keep_c = 1.0f - ha;
-      r = r * keep_c + fp.highlight[0] * ha;
-      g = g * keep_c + fp.highlight[1] * ha;
-      b = b * keep_c + fp.highlight[2] * ha;
-    }
+  if ((ip.gates & GATE_HIGHLIGHT) && sel) {  // after the selection edit
+    const float ha = fp.highlight[3];
+    const float keep_c = 1.0f - ha;
+    r = r * keep_c + fp.highlight[0] * ha;
+    g = g * keep_c + fp.highlight[1] * ha;
+    b = b * keep_c + fp.highlight[2] * ha;
   }
   return keep;
 }

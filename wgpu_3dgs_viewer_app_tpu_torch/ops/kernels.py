@@ -8,7 +8,8 @@ import every module on machines without nvcc or a card.
 
 Each kernel wrapper adds one to `LAUNCHES[<name>]` where it launches its
 kernel and nowhere else, so a run can show that the frame went through the
-kernels.
+kernels. A build also records what ptxas reports for each kernel
+(registers, stack frame, spill bytes) in `resource_usage`.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -36,6 +38,9 @@ LAUNCHES = {"fused": 0, "sort": 0, "composite": 0, "geometry": 0, "enum_pack": 0
             "composite_v1": 0}
 # Seconds the last build in this process took (None: no build ran).
 build_seconds = None
+# ptxas's report of each kernel of the last build in this process, by
+# mangled name: registers, stack, spill_stores, spill_loads (bytes).
+resource_usage = {}
 
 _lib = None
 _lock = threading.Lock()
@@ -72,8 +77,38 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit (set CUDA_HOME)")
 
 
+def _ptxas_usage(log: str) -> dict:
+    """Registers, stack frame and spill bytes of each kernel in `-Xptxas -v`
+    output, by mangled name."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line):
+            name = m.group(1)
+            usage.setdefault(name, {})
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", line)):
+            usage[name].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            usage[name]["registers"] = int(m[1])
+    return usage
+
+
+def compile_objects(sources: list, objs: list) -> dict:
+    """nvcc each source into its object, all at once; raise if one fails.
+    Returns ptxas's report of every kernel (`_ptxas_usage`)."""
+    nvcc = _nvcc()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(src.name, log) for src, log, p in zip(sources, logs, procs) if p.returncode]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f"{n}:\n{log}" for n, log in failed))
+    return _ptxas_usage("\n".join(logs))
+
+
 def _build() -> Path:
-    global build_seconds
+    global build_seconds, resource_usage
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sources + sorted(CSRC.glob("*.cuh")):
@@ -86,13 +121,7 @@ def _build() -> Path:
     t0 = time.perf_counter()
     tag = f"{os.getpid()}_{threading.get_ident()}"
     objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(sources, objs)]
-    failed = [(src.name, p.communicate()[0]) for src, p in zip(sources, procs)]
-    failed = [(name, log) for (name, log), p in zip(failed, procs) if p.returncode]
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(f"{n}:\n{log}" for n, log in failed))
+    usage = compile_objects(sources, objs)
     tmp = out.with_suffix(f".{tag}.tmp")
     link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
                           capture_output=True, text=True)
@@ -102,6 +131,7 @@ def _build() -> Path:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
     build_seconds = time.perf_counter() - t0
+    resource_usage = usage
     return out
 
 
