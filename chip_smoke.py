@@ -22,7 +22,9 @@ Phases, each printing what it found:
      issue a call), with ptxas's registers and spills of each of their
      instantiations;
   3. the golden fixture rendered through the port's CLI on cuda, held to the
-     repo's golden gate (`tests/test_golden.py::assert_golden_close`);
+     repo's golden gate (`tests/test_golden.py::assert_golden_close`), and
+     the CLI's orbit sequence (`--frames 3 --orbit-step 20`), each frame
+     byte for byte the single render at its yaw;
   4. BASELINE config 1: a 6M-splat scene at 1920x1080, SH degree 3, norm8
      SH + half cov3d, tile 32, max_dup 4, through `Viewer.render`: 2 warm-up
      and 5 timed frames; the launch counters must show K1-K3 ran once a
@@ -69,14 +71,27 @@ Phases, each printing what it found:
      kept splats alone (<= 1e-5), two hit queries making a measurement pair
      (K4), a frame with its line, an export with the mask filter (the kept
      count), Reset (the unmasked frame again), and a rect gesture with a
-     committed edit.
+     committed edit;
+  9. phase 8's session served over HTTP: the port's `ViewerServer` on a
+     `ThreadingHTTPServer` at 127.0.0.1 (an ephemeral port, a daemon
+     thread) driven with urllib: the page and `/state`; the mask evaluated
+     again over `/command`; 2 warm-up and 5 timed dirty frames (an orbit
+     `/event`, then `/frame.jpg?quality=85`), each split into `update()`,
+     the JPEG encoder's device stages, its copy to the host, its host stage
+     and the HTTP overhead; a dirty frame's launches (K1-K3 once) and an
+     idle poll's (none, the cached bytes); the served bytes against
+     `utils.jpeg` of an in-process `update()` and against the CPU encoding
+     of its uint8 copy; a `scale=0.5` frame's size; the first-person
+     camera; a rect selection over `/event` (K4 once) and a committed
+     edit; a masked export over `/export` (the kept count); and a change of
+     compression over `/set`.
 
 The line before the last two is the kernels' JSON record (each kernel's
 launches on its path, error against its plain version, times, least time
 the card could take for the same work, and a library call's time where one
 PyTorch call computes the same function; K3 and K6 with their tile-64,
-tile-128 and tile-320 numbers, and every kernel's launches in one config-4 frame and in
-its hit queries); the next is nvidia-smi's name and
+tile-128 and tile-320 numbers, and every kernel's launches in one config-4 frame, in
+its hit queries and in one served frame); the next is nvidia-smi's name and
 power limit; the last is {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero. Runs without a CUDA device, or outside the repo, fail
 before printing it.
@@ -148,6 +163,9 @@ CONFIG4_SHAPES = (("box", (0.0, 0.0, 0.0), 1.5), ("ellipsoid", (0.5, 0.0, 0.0), 
                   ("box", (-0.5, 0.4, 0.0), 0.6))
 CONFIG4_OP = "(0 | 1) - 2"
 CONFIG4_HITS = ((960.0, 544.0), (1060.0, 580.0))
+# Config 4's splats (config 1's scene) and those its mask keeps (the scene
+# and the shapes are made from seeds).
+CONFIG4_SPLATS, CONFIG4_KEPT = 6_000_000, 306_829
 # Tiles over 32 px that K3 and K6 are held at besides the main path's 32: one
 # block of 1024 threads a tile at 64, a cluster of 4 row bands at 128, and
 # 32-px parts in two launches at 320 (csrc/composite.cuh).
@@ -744,6 +762,25 @@ def phase_golden(work_dir: str) -> None:
     require(d.mean() < 1.0 and d.max() <= 48, "golden drift")  # holds under -O too
     log(f"phase 3 golden: CLI render on cuda vs tests/golden/golden_256.png: mean "
         f"{d.mean():.4f} u8, max {d.max()} u8 -> assert_golden_close passed")
+
+    # The orbit sequence: frame i is the single render at yaw 20 i, byte for byte.
+    args = ["render", ply, "--width", "256", "--height", "256", "--max-dup", "16",
+            "--device", "cuda"]
+    seq = os.path.join(work_dir, "seq.png")
+    rc = cli(args + ["-o", seq, "--frames", "3", "--orbit-step", "20"])
+    require(rc == 0, f"CLI render --frames 3 exited {rc}")
+    frames = []
+    for i in range(3):
+        single = os.path.join(work_dir, f"single_{i}.png")
+        require(cli(args + ["-o", single, "--orbit", str(20 * i)]) == 0, "CLI render exited")
+        with open(os.path.join(work_dir, f"seq_{i:03d}.png"), "rb") as f, open(single, "rb") as g1:
+            got, want = f.read(), g1.read()
+        require(got == want, f"orbit frame {i} differs from the single render at {20 * i} deg")
+        frames.append(got)
+    require(len(set(frames)) == 3, "the orbit sequence repeats a frame")
+    log("phase 3 orbit sequence: CLI render --frames 3 --orbit-step 20 on cuda wrote "
+        "seq_000..002.png, each byte for byte the single render at 0, 20, 40 deg "
+        f"({', '.join(str(len(b)) for b in frames)} B)")
 
 
 def check_frame(img, what: str, min_coverage: float = 0.2, size=(1920, 1080)) -> float:
@@ -1723,7 +1760,187 @@ def phase_config4(g, device, smi: str) -> tuple:
     log(f"phase 8 checks: export with the mask filter {header.count} splats, {out.size} bytes in "
         f"{export_s:.2f} s; Reset frame == unmasked frame (max abs {d_reset}); rect gesture "
         f"{CONFIG3_RECT} selected {selected} splats (K4 once), edit committed to them")
-    return frame_launches, hit_launches
+    return frame_launches, hit_launches, s, kept
+
+
+def _sof_size(blob: bytes) -> tuple:
+    """(width, height) from a baseline JPEG's SOF0 header."""
+    i = blob.index(b"\xff\xc0")
+    return int.from_bytes(blob[i + 7:i + 9], "big"), int.from_bytes(blob[i + 5:i + 7], "big")
+
+
+def phase_serve(s, kept: int, smi: str) -> dict:
+    """Phase 9: phase 8's session behind the port's `ViewerServer` on a
+    `ThreadingHTTPServer` at 127.0.0.1 (an ephemeral port, a daemon thread),
+    driven with urllib. Returns the launch counts of one dirty frame."""
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from wgpu_3dgs_viewer_app_tpu_torch.app import ViewerServer, make_handler
+    from wgpu_3dgs_viewer_app_tpu_torch.app.server import ASSETS
+    from wgpu_3dgs_viewer_app_tpu_torch.data import read_ply
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import kernels
+    from wgpu_3dgs_viewer_app_tpu_torch.utils import human_readable_size, jpeg
+
+    t_phase = time.perf_counter()
+    w, h = CONFIG4_SIZE
+    vs = ViewerServer(s)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(vs))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def call(path: str, body=None) -> bytes:
+        """One request; a status other than 200 raises."""
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(base + path, data=data,
+                                     method="GET" if data is None else "POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.read()
+
+    def ok(path: str, body) -> None:
+        require(json.loads(call(path, body)) == {"ok": True}, f"{path} {body} failed")
+
+    orbit = {"type": "orbit", "dx": 10.0, "dy": 0.0}
+    m = s.viewer.models["config4.ply"]
+    try:
+        # 1. The page and the state.
+        require(call("/") == (ASSETS / "index.html").read_bytes(), "GET / is not the page")
+        st = json.loads(call("/state"))
+        model = st["models"]["config4.ply"]
+        require(model["count"] == CONFIG4_SPLATS and model["loaded"] == CONFIG4_SPLATS,
+                f"/state reports {model['count']} splats")
+        size = human_readable_size(s.compressions.compressed_size(CONFIG4_SPLATS))
+        require(model["compressed_size"] == size, f"compressed_size {model}, not {size}")
+        # Config 4's served scene: the mask again, no measurement line, no
+        # selection (phase 8's committed edit stays on its rect's splats).
+        ok("/command", {"cmd": "remove_measurement_pair", "index": 0})
+        ok("/set", {"action": "none"})
+        ok("/command", {"cmd": "clear_selection"})
+        ok("/command", {"cmd": "evaluate_mask"})
+        require(int(m.buffers.mask.sum()) == kept, "evaluate_mask over HTTP kept another set")
+
+        # 2. Dirty frames: an orbit event, then the frame.
+        for _ in range(2):
+            call("/event", orbit)
+            call("/frame.jpg?quality=85")
+        rows = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            call("/event", orbit)
+            t1 = time.perf_counter()
+            blob = call("/frame.jpg?quality=85")
+            t2 = time.perf_counter()
+            part = dict(vs.frame_ms)
+            rows.append({**part, "http": (t2 - t0) * 1e3 - sum(part.values()),
+                         "event": (t1 - t0) * 1e3, "total": (t2 - t0) * 1e3, "bytes": len(blob)})
+        mean = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]}
+
+        # 3. Launch counts: a dirty frame runs K1-K3 once, an idle poll nothing.
+        call("/event", orbit)
+        kernels.reset_launch_counts()
+        blob = call("/frame.jpg?quality=85")
+        frame_launches = dict(kernels.LAUNCHES)
+        want = {**dict.fromkeys(frame_launches, 0), "fused": 1, "sort": 1, "composite": 1}
+        require(frame_launches == want, f"a dirty frame launched {frame_launches}")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        idle = call("/frame.jpg?quality=85")
+        cached_ms = (time.perf_counter() - t0) * 1e3
+        require(idle == blob and not any(kernels.LAUNCHES.values()),
+                f"an idle poll launched {dict(kernels.LAUNCHES)} or re-encoded")
+
+        # 4. The served bytes: the encoding of an in-process update() at this
+        # state, on the card and of its uint8 copy on the CPU.
+        with vs.lock:
+            u8 = jpeg.frame_to_u8(s.update())
+        require(jpeg.encode_jpeg(u8, 85) == blob, "served bytes != utils.jpeg of update()")
+        u8_host = u8.cpu()
+        require(jpeg.encode_jpeg(u8_host, 85) == blob, "served bytes != the CPU encoding")
+        covered = float((u8_host.amax(dim=-1) > 0).float().mean())
+        require(covered > 0.01, f"the served frame covers {covered:.4f} of its pixels")
+
+        # 5. A scaled frame.
+        half = call("/frame.jpg?quality=85&scale=0.5")
+        require(_sof_size(half) == (w // 2, h // 2), f"scaled frame is {_sof_size(half)}")
+
+        # 6. The first-person camera: look and move change the frame; orbit returns.
+        ok("/event", {"type": "set_control", "control": "first_person"})
+        ok("/event", {"type": "look", "dx": 40.0, "dy": -10.0})
+        ok("/event", {"type": "move", "z": 1.0, "x": 0.3, "dt": 0.2})
+        require(json.loads(call("/state"))["camera"]["control"] == "first_person",
+                "set_control first_person did not take")
+        fp_frame = call("/frame.jpg?quality=85")
+        require(fp_frame != blob, "look and move left the frame as it was")
+        ok("/event", {"type": "set_control", "control": "orbit", "arm": 6.0})
+        require(json.loads(call("/state"))["camera"]["control"] == "orbit",
+                "set_control orbit did not take")
+
+        # 7. A rect selection over HTTP (texture mode, the page's default),
+        # then a committed edit.
+        ok("/set", {"action": "selection",
+                    "selection": {"edit": {"hsv": [0.6, 1.0, 1.0], "alpha": 0.8}}})
+        call("/frame.jpg?quality=85")
+        (x0, y0), (x1, y1) = CONFIG3_RECT
+        kernels.reset_launch_counts()
+        ok("/event", {"type": "action_start", "x": x0, "y": y0})
+        ok("/event", {"type": "action_move", "x": x1, "y": y1})
+        ok("/event", {"type": "action_end", "x": x1, "y": y1})
+        gesture = dict(kernels.LAUNCHES)
+        require(gesture == {**dict.fromkeys(gesture, 0), "geometry": 1},
+                f"the rect gesture launched {gesture}")
+        selected = int(m.buffers.selection.sum())
+        require(0 < selected < CONFIG4_SPLATS, f"{selected} splats selected")
+        ok("/command", {"cmd": "commit_edit"})
+        edited = call("/frame.jpg?quality=85")
+
+        # 8. Export with the mask filter.
+        t0 = time.perf_counter()
+        ply = call("/export", {"choices": {"config4.ply": {"with_mask": True}}})
+        export_s = time.perf_counter() - t0
+        n_export = read_ply(io.BytesIO(ply)).count
+        require(n_export == kept == CONFIG4_KEPT,
+                f"export holds {n_export} splats; the mask keeps {kept}")
+
+        # 9. A change of compression repacks the model; the next frame renders.
+        t0 = time.perf_counter()
+        ok("/set", {"compressions": {"sh": "half"}})
+        repack_s = time.perf_counter() - t0
+        require(s.compressions.sh.value == "half", "compressions not changed")
+        kernels.reset_launch_counts()
+        repacked = call("/frame.jpg?quality=85")
+        require(dict(kernels.LAUNCHES) == want, f"after the repack: {dict(kernels.LAUNCHES)}")
+        require(repacked[:2] == b"\xff\xd8" and _sof_size(repacked) == (w, h),
+                "the repacked frame is no JPEG of the frame's size")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    require(not thread.is_alive(), "the server thread did not stop")
+    fmt = ", ".join(f"{k} {v:.3f}" for k, v in mean.items() if k != "bytes")
+    log(f"phase 9 serve, config 4 ({w}x{h}, {CONFIG4_SPLATS} splats, '{CONFIG4_OP}', {kept} "
+        f"kept) over HTTP: GET / = the page, /state {model['count']} splats, compressed_size "
+        f"{model['compressed_size']}")
+    for i, r in enumerate(rows):
+        log(f"phase 9 dirty frame {i}: " + ", ".join(f"{k} {v:.3f}" for k, v in r.items()
+                                                     if k != "bytes") + f" ms, {r['bytes']} B")
+    log(f"phase 9 dirty frames, mean of 5 (POST /event orbit dx=10, GET /frame.jpg?quality=85): "
+        f"{fmt} ms ('update': update() under the state lock until its device work is done; "
+        f"'device', 'copy', 'host': the encoder's stages; 'http': the rest of both requests); "
+        f"mean {mean['bytes']:.0f} B; cached frame {cached_ms:.3f} ms [{smi}]")
+    log(f"phase 9 checks: a dirty frame launched {frame_launches}; an idle poll none, the same "
+        f"bytes; served bytes == utils.jpeg of an in-process update() on the card == the CPU "
+        f"encoding of its uint8 copy; scale=0.5 -> SOF0 {_sof_size(half)}; first person look + "
+        f"move changed the frame, orbit back; rect gesture {CONFIG3_RECT} (texture mode) "
+        f"selected {selected} splats (K4 once), edit committed ({len(edited)} B frame); POST "
+        f"/export with the mask: {n_export} splats, {len(ply)} B in {export_s:.2f} s; "
+        f"compressions sh half repacked in {repack_s:.2f} s, next frame {len(repacked)} B; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return frame_launches
 
 
 def main() -> int:
@@ -1772,7 +1989,10 @@ def main() -> int:
     launches["composite_v1"] = launches7["composite_v1"]["composite_v1"]
     del v2_img
     torch.cuda.empty_cache()
-    launches8, hits8 = phase_config4(g1, device, smi)
+    launches8, hits8, session4, kept4 = phase_config4(g1, device, smi)
+    del g1
+    launches9 = phase_serve(session4, kept4, smi)
+    del session4
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -1788,7 +2008,8 @@ def main() -> int:
                     "launches_v1_frame": launches7["composite_v1"][name],
                     "launches_rows_frame": launches7["rows"][name],
                     "launches_config4_frame": launches8[name],
-                    "launches_config4_hits": hits8[name], **r})
+                    "launches_config4_hits": hits8[name],
+                    "launches_serve_frame": launches9[name], **r})
     require(all(math.isfinite(k["ms"]) and math.isfinite(k["bound_ms"]) for k in out),
             f"non-finite time in {out}")
     print(json.dumps({"kernels": out}))

@@ -10,7 +10,8 @@ the merged multi-model frame included; the v1 chain's sort (K2 at the v1
 key layout) and compositor K6; K3 and K6 at tiles over 32 px (one block up
 to 64, a thread block cluster up to 256, 32-px parts in two launches
 above, also on a tile larger than the image); the app session's masked
-frame.
+frame; the JPEG encoder's bytes on the card against the CPU's, and the web
+viewer's `frame_jpeg` over a session on the card.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -30,7 +31,7 @@ import torch
 
 from test_golden import assert_golden_close
 from wgpu_3dgs_viewer_app_tpu_torch.app import (GaussianSplattingSession, SceneCommand,
-                                                SceneCommandKind)
+                                                SceneCommandKind, ViewerServer)
 from wgpu_3dgs_viewer_app_tpu_torch.core import CameraOrbitControl
 from wgpu_3dgs_viewer_app_tpu_torch.core import edit as tedit
 from wgpu_3dgs_viewer_app_tpu_torch.data import (
@@ -48,6 +49,7 @@ from wgpu_3dgs_viewer_app_tpu_torch.ops import (
 from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import tile_list_entries
 from wgpu_3dgs_viewer_app_tpu_torch.testing import (compare_entries, compare_preprocess,
                                                     compare_sorted)
+from wgpu_3dgs_viewer_app_tpu_torch.utils import jpeg
 from wgpu_3dgs_viewer_app_tpu_torch.viewer import MultiModelViewer, Viewer
 
 pytestmark = pytest.mark.cuda
@@ -636,3 +638,48 @@ def test_v1_wrappers_reject_bad_inputs(dev):
         composite_tiles(dataclasses.replace(planes, row_starts=planes.row_starts.long()), cfg)
     with pytest.raises(ValueError, match="tile 0"):
         composite_tiles(planes, TileConfig(256, 192, tile=0, max_dup=8))
+
+
+@pytest.mark.parametrize("h,w", [(1080, 1920), (23, 37)])
+def test_jpeg_on_card_equals_cpu(dev, h, w):
+    """The encoder's integer stages on the card give the CPU's file byte for
+    byte, from an f32 frame (at config 1's size) through `frame_to_u8`."""
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32), indexing="ij")
+    frame = torch.stack([torch.sin(xx / 37.0) * 0.5 + 0.5, (xx + yy) / (w + h),
+                         torch.rand(h, w, generator=torch.Generator().manual_seed(0))], -1)
+    frame[h // 3:h // 2] *= 1.3  # some values over 1 to clamp
+    u8_k = jpeg.frame_to_u8(frame.to(dev))
+    u8_c = jpeg.frame_to_u8(frame)
+    assert torch.equal(u8_k.cpu(), u8_c)
+    for q in (50, 85, 95):
+        assert torch.equal(jpeg.coefficients(u8_k, q).cpu(), jpeg.coefficients(u8_c, q))
+        assert jpeg.encode_jpeg(u8_k, q) == jpeg.encode_jpeg(u8_c, q)
+    blob = jpeg.encode_frame(frame.to(dev), 85, 0.5)
+    sof = blob.index(b"\xff\xc0")
+    assert (int.from_bytes(blob[sof + 5:sof + 7], "big"),
+            int.from_bytes(blob[sof + 7:sof + 9], "big")) == (round(h * 0.5), round(w * 0.5))
+
+
+def test_viewer_server_frame_jpeg_on_card(dev):
+    """`frame_jpeg` on a session on the card: a dirty frame launches K1, K2
+    and K3 once each and serves the encoding of the frame `update()` gives
+    at that state; an idle poll launches nothing and serves the same bytes."""
+    g = make_random_scene(50_000, seed=2, extent=1.5, scale_range=(0.005, 0.03))
+    buf = io.BytesIO()
+    write_ply(buf, g)
+    s = GaussianSplattingSession(width=320, height=240, device=dev)
+    s.open_model("m.ply", io.BytesIO(buf.getvalue()))
+    while s.loader is not None:
+        s._drain_loader()
+    vs = ViewerServer(s)
+    vs.frame_jpeg(85)  # warm-up
+    vs.handle_event({"type": "orbit", "dx": 10.0, "dy": 0.0})
+    kernels.reset_launch_counts()
+    blob = vs.frame_jpeg(85)
+    assert dict(kernels.LAUNCHES) == _only(fused=1, sort=1, composite=1)
+    assert set(vs.frame_ms) == {"update", "device", "copy", "host"}
+    kernels.reset_launch_counts()
+    assert vs.frame_jpeg(85) is blob and dict(kernels.LAUNCHES) == _only()
+    want = jpeg.encode_jpeg(jpeg.frame_to_u8(s.update()).cpu(), 85)
+    assert blob == want and blob[:2] == b"\xff\xd8" and len(blob) > 2000

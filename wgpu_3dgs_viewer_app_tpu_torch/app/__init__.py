@@ -1,11 +1,13 @@
 """The app layer: the session (`GaussianSplattingSession`), streaming load,
-measurement, export and the saved state. `cli` is imported on its own."""
+measurement, export, the saved state and the web viewer (`ViewerServer`,
+`serve`). `cli` is imported on its own."""
 
 from .export import ExportChoice, export_models, serialize_exports, snapshot_exports
 from .loader import Loadable, StreamingLoader
 from .measurement import (Measurement, MeasurementHit, MeasurementHitPair,
                           render_measurement_overlay)
 from .persistence import load_compressions, restore_state, save_state
+from .server import ViewerServer, make_handler, serve
 from .state import (Action, FpsCounter, GaussianSplattingSession, MaskState, SceneCommand,
                     SceneCommandKind, Selection, SelectionEdit, SelectionMethod)
 
@@ -32,4 +34,7 @@ __all__ = [
     "load_compressions",
     "restore_state",
     "save_state",
+    "ViewerServer",
+    "make_handler",
+    "serve",
 ]

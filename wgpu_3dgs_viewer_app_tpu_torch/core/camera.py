@@ -1,4 +1,5 @@
-"""Cameras: view/projection matrices and the orbit control (host-side numpy).
+"""Cameras: view/projection matrices and the orbit and first-person controls
+(host-side numpy).
 
 Same conventions as `wgpu_3dgs_viewer_app_tpu.core.camera`: right-handed,
 the camera looks down -Z, NDC z in [0, 1] (glam `look_at_rh` /
@@ -115,6 +116,77 @@ class CameraOrbitControl(CameraTrait):
         d = np.asarray(delta_world, np.float32)
         self.target = self.target + d
         self._pos = self._pos + d
+
+
+class CameraFirstPersonControl(CameraTrait):
+    """First-person camera: a position with yaw and pitch."""
+
+    def __init__(self, z=(0.1, 1e4), vertical_fov=math.radians(60.0)):
+        self._pos = np.zeros(3, np.float32)
+        self.yaw = 0.0
+        self.pitch = 0.0
+        self.z_near, self.z_far = z
+        self.vertical_fov = vertical_fov
+
+    @property
+    def pos(self) -> np.ndarray:
+        return self._pos
+
+    @pos.setter
+    def pos(self, v) -> None:
+        self._pos = np.asarray(v, np.float32)
+
+    def get_forward(self) -> np.ndarray:
+        cp = math.cos(self.pitch)
+        return np.array([cp * math.sin(self.yaw), math.sin(self.pitch), cp * math.cos(self.yaw)],
+                        np.float32)
+
+    def get_right(self) -> np.ndarray:
+        r = np.cross(self.get_forward(), np.array([0, 1, 0], np.float32))
+        n = np.linalg.norm(r)
+        return r / n if n > 0 else np.array([1, 0, 0], np.float32)
+
+    def yaw_by(self, d: float) -> None:
+        self.yaw = (self.yaw + d) % (2 * math.pi)
+
+    def pitch_by(self, d: float) -> None:
+        self.pitch = float(np.clip(self.pitch + d, -math.pi / 2 + 1e-3, math.pi / 2 - 1e-3))
+
+    def view(self) -> np.ndarray:
+        return look_at_rh(self._pos, self._pos + self.get_forward(),
+                          np.array([0, 1, 0], np.float32))
+
+    def projection(self, aspect: float) -> np.ndarray:
+        return perspective_rh(self.vertical_fov, aspect, self.z_near, self.z_far)
+
+
+def to_first_person(control: CameraTrait) -> CameraFirstPersonControl:
+    """Orbit -> first person at the same pose (a first-person control is
+    returned as it is)."""
+    if isinstance(control, CameraFirstPersonControl):
+        return control
+    if not isinstance(control, CameraOrbitControl):
+        raise TypeError(f"no first-person pose for {type(control).__name__}")
+    direction = control.target - control.pos
+    direction = direction / np.linalg.norm(direction)
+    fp = CameraFirstPersonControl(z=(control.z_near, control.z_far),
+                                  vertical_fov=control.vertical_fov)
+    fp.pos = control.pos.copy()
+    fp.yaw = math.atan2(direction[0], direction[2])
+    fp.pitch = math.asin(float(np.clip(direction[1], -1, 1)))
+    return fp
+
+
+def to_orbit(control: CameraTrait, arm_length: float) -> CameraOrbitControl:
+    """First person -> orbit about the point `arm_length` ahead (an orbit
+    control is returned as it is)."""
+    if isinstance(control, CameraOrbitControl):
+        return control
+    if not isinstance(control, CameraFirstPersonControl):
+        raise TypeError(f"no orbit pose for {type(control).__name__}")
+    return CameraOrbitControl(target=control.pos + control.get_forward() * arm_length,
+                              pos=control.pos.copy(), z=(control.z_near, control.z_far),
+                              vertical_fov=control.vertical_fov)
 
 
 @dataclasses.dataclass

@@ -142,3 +142,7 @@ class GaussianBuffers:
         if self.selection is None:
             return np.zeros(self.loaded, np.uint8)
         return self.selection[: self.loaded].cpu().numpy()
+
+    def compressed_size(self) -> int:
+        """Bytes of the packed splats at the buffers' compression and capacity."""
+        return self.comp.compressed_size(self.capacity)
