@@ -5,7 +5,9 @@
 
 Phases, each printing what it found:
   1. device: the card's name and power limit (nvidia-smi) and the seconds the
-     CUDA kernels took to build from `wgpu_3dgs_viewer_app_tpu_torch/csrc`;
+     CUDA kernels took to build from `wgpu_3dgs_viewer_app_tpu_torch/csrc`
+     and the native codec from `native/gsnative.cpp` (g++, before the
+     first pack);
   2. each kernel against its plain torch version on the card, with both
      times: K1 front-end (ungated and with every gate), K2 entry sort (row
      for row against the stable plain sort, with each of its kernels' bytes
@@ -84,14 +86,27 @@ Phases, each printing what it found:
      of its uint8 copy; a `scale=0.5` frame's size; the first-person
      camera; a rect selection over `/event` (K4 once) and a committed
      edit; a masked export over `/export` (the kept count); and a change of
-     compression over `/set`.
+     compression over `/set`;
+ 10. the native codec and the sharded renderer on the config-1 scene: the
+     6M-splat pack by the codec (the default `pack_gaussians`, and
+     `pack_gaussians_native` alone) and by numpy (`use_native=False`),
+     timed, the codec's pod held against numpy's within `tests/
+     test_native.py`'s tolerances; then the config-1 frame through
+     `parallel.render_sharded` over NCCL at world size 1 (an in-process
+     group on a `HashStore`, destroyed at the end): 2 warm-up and 5 timed
+     frames against as many `viewer.render_frame` frames, K5 once, K2
+     twice (the local sort and the owner's), K3 once and K1 never a
+     frame, overflow 0 and `last_stats()`, the image bit for bit
+     `render_frame`'s, and each stage's time (local front-end and sort,
+     the count exchange and its host read, the entries' all_to_all, the
+     owner's sort and composite, the gather) over 5 more frames.
 
 The line before the last two is the kernels' JSON record (each kernel's
 launches on its path, error against its plain version, times, least time
 the card could take for the same work, and a library call's time where one
 PyTorch call computes the same function; K3 and K6 with their tile-64,
 tile-128 and tile-320 numbers, and every kernel's launches in one config-4 frame, in
-its hit queries and in one served frame); the next is nvidia-smi's name and
+its hit queries, in one served frame and in one sharded frame); the next is nvidia-smi's name and
 power limit; the last is {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero. Runs without a CUDA device, or outside the repo, fail
 before printing it.
@@ -111,6 +126,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # An image whose tiles stop at their 128-entry chunk exits may lack up to
 # the remaining transmittance, 1/255 a channel, against one drawn on.
 EXIT_TOL = 1.0 / 255.0 + 1e-5
+# Profiler sessions a device-time measurement is made in before it is
+# written down as not measured (`profiled`).
+PROFILE_TRIES = 3
 
 KERNELS = {
     "fused": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/fused.cu",
@@ -234,52 +252,92 @@ def bound(n_bytes: float, ops: float) -> tuple:
     return (b, "bytes") if b >= o else (o, "operations")
 
 
-def device_kernel_ms(fn, reps: int) -> tuple:
-    """torch.profiler over `reps` calls of fn() after one warm-up: (ms per
-    call of each kernel name, the ms of each launch of each name in launch
-    order)."""
+def profiled(fn, reps: int, check=None):
+    """torch.profiler over `reps` calls of fn() after one warm-up: the
+    profile, or None where the profiler saw no device time. CUPTI on the
+    card's host now and then records no kernel in a session, or fewer than
+    were launched, so a session that saw nothing, or one that `check(prof)`
+    (a message, or None when the session holds what is asked of it) finds
+    wanting, is made again, up to PROFILE_TRIES times. Where some session
+    saw device time but none passed `check`, its message is raised."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    per_name, launches = {}, {}
-    events = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
-    for e in sorted(events, key=lambda e: e.time_range.start):
-        ms = e.time_range.elapsed_us() / 1e3
-        per_name[e.name] = per_name.get(e.name, 0.0) + ms / reps
-        launches.setdefault(e.name, []).append(ms)
-    require(per_name, "the profiler saw no device time")
-    return per_name, launches
+    fault = None  # the last `check` message of a session that saw device time
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            log(f"  (profiler session {attempt} of {PROFILE_TRIES}: {fault or 'no device time'}; "
+                f"once more)")
+            time.sleep(0.5)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        if not any(getattr(e, "device_type", None) == DeviceType.CUDA for e in prof.events()):
+            continue
+        fault = check(prof) if check else None
+        if fault is None:
+            return prof
+    require(fault is None, fault)
+    log(f"  (the profiler saw no device time in {PROFILE_TRIES} sessions: not measured)")
+    return None
+
+
+def device_kernel_ms(fn, reps: int, check=None):
+    """Under `profiled`: (ms per call of each kernel name, the ms of each
+    launch of each name in launch order), or None where the profiler saw no
+    device time. `check(per_name, launches)` as in `profiled`."""
+    from torch.autograd import DeviceType
+
+    def split(prof):
+        per_name, launches = {}, {}
+        events = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
+        for e in sorted(events, key=lambda e: e.time_range.start):
+            ms = e.time_range.elapsed_us() / 1e3
+            per_name[e.name] = per_name.get(e.name, 0.0) + ms / reps
+            launches.setdefault(e.name, []).append(ms)
+        return per_name, launches
+
+    prof = profiled(fn, reps, check and (lambda prof: check(*split(prof))))
+    return None if prof is None else split(prof)
+
+
+def fmt_ms(ms) -> str:
+    """A device time for the log: "not measured" where the profiler saw none."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def wrapper_times(fn, part: str, reps: int = 20) -> dict:
     """A kernel wrapper's time three ways: `ms` by CUDA events around
     back-to-back calls (`cuda_ms`), `device_ms` the one kernel whose name
-    holds `part` alone under torch.profiler, and `host_ms` the host's time to
-    issue one call (no synchronise inside the timed calls)."""
+    holds `part` alone under torch.profiler (None where the profiler saw no
+    device time), and `host_ms` the host's time to issue one call (no
+    synchronise inside the timed calls)."""
     import torch
 
-    per_name, launches = device_kernel_ms(fn, reps)
-    names = [k for k in per_name if part in k]
-    require(len(names) == 1, f"kernel {part}: {names} among {sorted(per_name)}")
-    # The mean over the launches the profiler kept: late in a long process
-    # it has kept fewer than `reps`.
-    seen = launches[names[0]]
-    if len(seen) != reps:
-        log(f"  (the profiler kept {len(seen)} of {reps} launches of {part})")
+    def one_kernel(per_name, launches):
+        names = [k for k in per_name if part in k]
+        return None if len(names) == 1 else f"kernel {part}: {names} among {sorted(per_name)}"
+
+    found = device_kernel_ms(fn, reps, one_kernel)
+    seen = []
+    if found is not None:
+        per_name, launches = found
+        # The mean over the launches the profiler kept: late in a long
+        # process it has kept fewer than `reps`.
+        seen = launches[next(k for k in per_name if part in k)]
+        if len(seen) != reps:
+            log(f"  (the profiler kept {len(seen)} of {reps} launches of {part})")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
     host = (time.perf_counter() - t0) * 1e3 / reps
-    return {"ms": cuda_ms(fn, reps), "device_ms": sum(seen) / len(seen), "host_ms": host,
-            "device_launches_seen": len(seen)}
+    return {"ms": cuda_ms(fn, reps), "device_ms": sum(seen) / len(seen) if seen else None,
+            "host_ms": host, "device_launches_seen": len(seen)}
 
 
 def ptxas_rows(part: str, usage: dict = None) -> dict:
@@ -311,15 +369,27 @@ def log_ptxas(what: str, rows: dict) -> None:
 def k2_kernel_report(sort, e: int, n_live: int, n_tiles: int) -> dict:
     """Each K2 kernel's device time per sort, the bytes it must move (each
     input read once, each output written once) and its achieved rate."""
-    per_name, launches = device_kernel_ms(sort, 5)
+    parts = ("upfront_kernel", "digit_start_kernel", "onesweep_pass_kernel", "tile_edges_kernel")
+
+    def whole(per_name, launches):
+        for part in parts:
+            names = [k for k in per_name if part in k]
+            if len(names) != 1:
+                return f"K2 kernel {part}: {names} among {sorted(per_name)}"
+            if part == "onesweep_pass_kernel" and len(launches[names[0]]) != 4 * 5:
+                return f"{len(launches[names[0]])} one-sweep passes in 5 sorts"
+        return None
+
+    found = device_kernel_ms(sort, 5, whole)
+    if found is None:
+        log("phase 2 K2 kernels: not measured (the profiler saw no device time)")
+        return {"not_measured": "the profiler saw no device time"}
+    per_name, launches = found
 
     def find(part):
-        names = [k for k in per_name if part in k]
-        require(len(names) == 1, f"K2 kernel {part}: {names} among {sorted(per_name)}")
-        return names[0]
+        return next(k for k in per_name if part in k)
 
     passes = launches[find("onesweep_pass_kernel")]
-    require(len(passes) == 4 * 5, f"{len(passes)} one-sweep passes in 5 sorts")
     first = sum(passes[0::4]) / 5
     rows = [("upfront", "upfront_kernel (live count, 4 histograms)",
              per_name[find("upfront_kernel")], 16 * e, 4 * 1025),
@@ -330,9 +400,7 @@ def k2_kernel_report(sort, e: int, n_live: int, n_tiles: int) -> dict:
              per_name[find("onesweep_pass_kernel")] - first, 3 * 16 * n_live, 3 * 16 * n_live),
             ("tile_edges", "tile_edges_kernel", per_name[find("tile_edges_kernel")],
              16 * n_live, 4 * (n_tiles + 1))]
-    other = sum(ms for k, ms in per_name.items()
-                if not any(p in k for p in ("upfront_kernel", "digit_start_kernel",
-                                            "onesweep_pass_kernel", "tile_edges_kernel")))
+    other = sum(ms for k, ms in per_name.items() if not any(p in k for p in parts))
     out = {}
     for key, name, ms, rd, wr in rows:
         rate = (rd + wr) / (ms * 1e-3) / 1e12
@@ -497,7 +565,7 @@ def phase_kernels(g1, cam1, g3, cam3, device) -> dict:
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     log(f"phase 2 K1 front-end: {n} splats, {st['live_a']} live entries, "
         f"{st['identical']:.6f} identical to plain, {st['differing']} within one step; "
-        f"kernel {t['ms']:.4f} ms by events around the wrapper ({t['device_ms']:.4f} device "
+        f"kernel {t['ms']:.4f} ms by events around the wrapper ({fmt_ms(t['device_ms'])} device "
         f"only, {t['host_ms']:.4f} host to issue), plain {rec['fused']['plain_ms']:.3f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
     rec["fused"]["ptxas"] = ptxas_rows("fused_frontend_kernel")
@@ -519,7 +587,7 @@ def phase_kernels(g1, cam1, g3, cam3, device) -> dict:
     del gkw
     log(f"phase 2 K1 gated (mask, edits, selection edit, highlight): {stg['live_a']} live "
         f"entries, {stg['identical']:.6f} identical to plain, {stg['differing']} within one step; "
-        f"kernel {t['ms']:.4f} ms ({t['device_ms']:.4f} device only, {t['host_ms']:.4f} host), "
+        f"kernel {t['ms']:.4f} ms ({fmt_ms(t['device_ms'])} device only, {t['host_ms']:.4f} host), "
         f"plain {gated['gated_plain_ms']:.3f} ms, bound {gb_ms:.4f} ms")
 
     # K2, row for row against the stable plain sort.
@@ -669,7 +737,7 @@ def phase_kernels_staged(g1, cam1, model2, device, rec: dict) -> None:
         f"entries, {st['slots_differing']} of {ent5.shape[0]} slots differ from plain (max field "
         f"step {st['max_field_step']}); vs K1 on the same scene and camera: "
         f"{st1['slots_differing']} slots differ, {st1['identical']:.6f} of live slots identical, "
-        f"max field step {st1['max_field_step']}; kernel {t['ms']:.4f} ms ({t['device_ms']:.4f} "
+        f"max field step {st1['max_field_step']}; kernel {t['ms']:.4f} ms ({fmt_ms(t['device_ms'])} "
         f"device only, {t['host_ms']:.4f} host), plain {k5['config1_plain_ms']:.3f} ms, bound "
         f"{b6_ms:.4f} ms ({b6_by}); the plain preprocess "
         f"before it {k5['config1_preprocess_plain_ms']:.3f} ms")
@@ -706,7 +774,7 @@ def phase_kernels_staged(g1, cam1, model2, device, rec: dict) -> None:
                    lambda: enumerate_entries_from_pre_plain(pre, cfg_m, model_rank=2), 3),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     rec["enum_pack"] = k5
-    log(f"phase 2 K5 at the config-2 shapes: kernel {t['ms']:.4f} ms ({t['device_ms']:.4f} "
+    log(f"phase 2 K5 at the config-2 shapes: kernel {t['ms']:.4f} ms ({fmt_ms(t['device_ms'])} "
         f"device only, {t['host_ms']:.4f} host), plain {k5['plain_ms']:.3f} ms, bound "
         f"{b_ms:.4f} ms ({b_by})")
     k5["ptxas"] = ptxas_rows("enum_pack_kernel")
@@ -730,7 +798,7 @@ def phase_kernels_staged(g1, cam1, model2, device, rec: dict) -> None:
     rec["fused"]["config2_ranked_bound_ms"] = rb_ms
     log(f"phase 2 K1 with model rank 1 of model_bits 2 (one config-2 model, edits on): "
         f"{st['live_a']} live entries, {st['slots_differing']} slots differ from plain, "
-        f"{st['identical']:.6f} identical; kernel {t['ms']:.4f} ms ({t['device_ms']:.4f} device "
+        f"{st['identical']:.6f} identical; kernel {t['ms']:.4f} ms ({fmt_ms(t['device_ms'])} device "
         f"only, {t['host_ms']:.4f} host), "
         f"plain {rec['fused']['config2_ranked_plain_ms']:.3f} ms, bound {rb_ms:.4f} ms ({rb_by}: "
         f"pod words, edit SoA and {ent1.shape[0]} entry slots)")
@@ -1556,29 +1624,32 @@ class _HeadWriter:
 
 
 def profile_frames(step, frames: int = 3) -> tuple:
-    """torch.profiler over `frames` calls of step() after one warm-up: (wall
-    ms, device-busy ms, [(kernel, ms per frame, launches per frame)] by
-    time, largest first)."""
+    """`profiled` over `frames` calls of step() (wall ms, device-busy ms,
+    [(kernel, ms per frame, launches per frame)] by time, largest first), or
+    None where the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    walls = []
+
+    def timed():
         t0 = time.perf_counter()
         for _ in range(frames):
             step()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    prof = profiled(timed, 1)
+    if prof is None:
+        return None
     # Device-side events only: the host ops that launched them carry the
     # same device time and would count it twice.
     rows = [(e.key, e.self_device_time_total / 1e3 / frames, e.count // frames)
             for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(r[1] for r in rows) * frames
-    require(busy > 0, "the profiler saw no device time")
-    return wall, busy, sorted(rows, key=lambda r: -r[1])
+    require(busy > 0, "the profiler saw device events but no device time")
+    return walls[-1], busy, sorted(rows, key=lambda r: -r[1])
 
 
 def phase_config4(g, device, smi: str) -> tuple:
@@ -1684,14 +1755,19 @@ def phase_config4(g, device, smi: str) -> tuple:
     s.update()
     frame_launches = dict(kernels.LAUNCHES)
     render_ms = cuda_ms(lambda: s.viewer.render(cam), 5)
-    wall, busy, rows = profile_frames(s.update)
-    top = ", ".join(f"{k[:40]} {v:.3f}" for k, v, _ in rows[:6])
+    profile = profile_frames(s.update)
+    if profile is None:
+        seen = "under the profiler: not measured (it saw no device time)"
+    else:
+        wall, busy, rows = profile
+        top = ", ".join(f"{k[:40]} {v:.3f}" for k, v, _ in rows[:6])
+        seen = (f"under the profiler, 3 frames: {wall / 3:.3f} ms/frame wall, device busy "
+                f"{busy / 3:.3f} ms/frame, idle share {1 - busy / wall:.3f}; top device "
+                f"ms/frame: {top}")
     log(f"phase 8 config 4 frames: {g.count} splats at {w}x{h}, SH 3, norm8/half, tile 32, "
         f"max_dup 4, mask-gated: update() {ms:.3f} ms/frame over 5 frames (Viewer.render alone "
         f"{render_ms:.3f} ms), peak {peak:.2f} GiB, coverage {coverage:.3f}, launches {launches}; "
-        f"under the profiler, 3 frames: {wall / 3:.3f} ms/frame wall, device busy "
-        f"{busy / 3:.3f} ms/frame, idle share {1 - busy / wall:.3f}; top device ms/frame: {top} "
-        f"[{smi}]")
+        f"{seen} [{smi}]")
 
     # The masked frame against a scene of the kept splats alone, in order.
     masked = s.viewer.render(cam)
@@ -1943,6 +2019,124 @@ def phase_serve(s, kept: int, smi: str) -> dict:
     return frame_launches
 
 
+def check_codec_pod(got: dict, ref: dict) -> int:
+    """The native pod against numpy's within `tests/test_native.py`'s
+    tolerances: pos equal, u8 fields +-1, cov3d rtol 1e-3 atol 1e-6.
+    Returns the count of cov3d words that differ."""
+    import numpy as np
+
+    require(set(got) == set(ref), f"codec fields {sorted(got)} vs numpy {sorted(ref)}")
+    require(np.array_equal(got["pos"], ref["pos"]), "codec pos differs from numpy's")
+    for shift in (0, 8, 16, 24):
+        d = np.abs(((got["color0"] >> shift) & 0xFF).astype(np.int16)
+                   - ((ref["color0"] >> shift) & 0xFF).astype(np.int16))
+        require(int(d.max()) <= 1, f"codec color0 byte {shift // 8}: off by {int(d.max())}")
+    if ref.get("sh") is not None and ref["sh"].dtype == np.uint8:
+        d = np.abs(got["sh"].astype(np.int16) - ref["sh"].astype(np.int16))
+        require(int(d.max()) <= 1, f"codec sh: off by {int(d.max())}")
+        for k in ("sh_mn", "sh_span"):
+            require(np.allclose(got[k], ref[k], rtol=1e-6, atol=0), f"codec {k} differs")
+    a, b = got["cov3d"].astype(np.float32), ref["cov3d"].astype(np.float32)
+    require(np.allclose(a, b, rtol=1e-3, atol=1e-6),
+            f"codec cov3d: max abs {float(np.abs(a - b).max())}")
+    return int((got["cov3d"] != ref["cov3d"]).sum())
+
+
+def phase_sharded(g, cam, device, smi: str) -> dict:
+    """Phase 10: the native codec on the config-1 scene (native pack against
+    numpy's), then the config-1 frame through the sharded renderer over NCCL
+    at world size 1, against `viewer.render_frame`. Returns the launches of
+    one sharded frame."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from wgpu_3dgs_viewer_app_tpu_torch.data import (Compressions, flat_pod_to_words, native,
+                                                     pack_gaussians)
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import TileConfig, kernels, over_background
+    from wgpu_3dgs_viewer_app_tpu_torch.parallel import (make_mesh, render_frame_sharded,
+                                                         render_sharded, shard_pod)
+    from wgpu_3dgs_viewer_app_tpu_torch.parallel.render_sharded import last_stats
+    from wgpu_3dgs_viewer_app_tpu_torch.viewer import render_frame
+
+    t_phase = time.perf_counter()
+    comp = Compressions()
+    require(native.available(), "the native codec is not available on the card's host")
+    t0 = time.perf_counter()
+    direct = native.pack_gaussians_native(g, comp)
+    direct_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = pack_gaussians(g, comp)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw_np = pack_gaussians(g, comp, use_native=False)
+    numpy_s = time.perf_counter() - t0
+    require(set(raw) == set(direct) and all(np.array_equal(raw[k], direct[k]) for k in raw),
+            "the default pack_gaussians did not run the native codec")
+    cov_diff = check_codec_pod(raw, raw_np)
+    del direct, raw_np
+    log(f"phase 10 native codec: built and loaded in {native.build_seconds:.2f} s (phase 1); "
+        f"{g.count} splats packed (norm8/half) in {native_s:.3f} s by the default "
+        f"pack_gaussians, {direct_s:.3f} s by pack_gaussians_native, {numpy_s:.3f} s by numpy "
+        f"(use_native=False), {numpy_s / native_s:.1f}x; against numpy: pos equal, u8 fields "
+        f"+-1, cov3d within rtol 1e-3 ({cov_diff} of {raw['cov3d'].size} f16 words differ) "
+        f"[{smi}]")
+
+    cfg = TileConfig(1920, 1080, tile=32, max_dup=4)
+    view, proj = cam.view(), cam.projection(cfg.width / cfg.height)
+    eye = np.eye(4, dtype=np.float32)
+    words = flat_pod_to_words(raw, comp)
+    del raw
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    init_s = time.perf_counter() - t0
+    try:
+        mesh = make_mesh()
+        require((mesh.world, mesh.device) == (1, device), f"mesh {mesh}")
+        pod = shard_pod(words, mesh)
+        del words
+
+        def sharded():
+            return render_sharded(pod, mesh, comp, cfg, view, proj, sh_degree=3)
+
+        def single():
+            return over_background(render_frame(pod, comp, cfg, view, proj, eye, sh_degree=3),
+                                   np.zeros(3, np.float32))
+
+        ms, img, peak, launches7 = timed_frames(sharded)
+        ms_single, ref, peak_single, _ = timed_frames(single)
+        kernels.reset_launch_counts()
+        img = sharded()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        want = {**dict.fromkeys(launches, 0), "enum_pack": 1, "sort": 2, "composite": 1}
+        require(launches == want, f"one sharded frame launched {launches}, expected {want}")
+        want7 = {k: 7 * v for k, v in want.items()}
+        require(launches7 == want7, f"7 sharded frames launched {launches7}, expected {want7}")
+        require(last_stats() == {"overflow": 0, "n_devices": 1},
+                f"last_stats() {last_stats()} after the sharded frames")
+        coverage = check_frame(img, "sharded config 1")
+        require(torch.equal(img, ref), "sharded frame differs from render_frame: max abs "
+                f"{float((img - ref).abs().max())}")
+        stages = []
+        for _ in range(5):
+            tm = {}
+            render_frame_sharded(pod, mesh, "splats", comp, cfg, view, proj, eye,
+                                 np.zeros(3, np.float32), sh_degree=3, timings=tm)
+            stages.append(tm)
+        mean = {k: sum(s[k] for s in stages) / len(stages) for k in stages[0]}
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 10 sharded frame, config 1 over NCCL at world size 1 (group set up in "
+        f"{init_s:.2f} s): {ms:.3f} ms/frame over 5 frames (render_frame {ms_single:.3f}), "
+        f"peak {peak:.2f} GiB (render_frame {peak_single:.2f}), coverage {coverage:.3f}, "
+        f"launches of one frame {launches}, overflow 0, last_stats {last_stats()}, bit for bit "
+        f"render_frame; stages, each closed by a sync, mean of 5 (ms): "
+        + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in mean.items())
+        + f"; phase {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1950,6 +2144,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from wgpu_3dgs_viewer_app_tpu_torch.data import native
     from wgpu_3dgs_viewer_app_tpu_torch.ops import kernels
 
     device = torch.device("cuda", 0)
@@ -1962,8 +2157,12 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.library()
     build = time.perf_counter() - t0
+    # The native codec builds here, before the first pack, so phase 10 can
+    # report its build on the card's host.
+    require(native.available(), "the native codec did not build")
     log(f"phase 1 device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
-        f"kernel build {build:.1f} s (nvcc {kernels.build_seconds or 0.0:.1f} s)")
+        f"kernel build {build:.1f} s (nvcc {kernels.build_seconds or 0.0:.1f} s); native "
+        f"codec build {native.build_seconds:.2f} s")
 
     g1, cam1 = config1_scene()
     g3, cam3 = config3_scene()
@@ -1990,9 +2189,11 @@ def main() -> int:
     del v2_img
     torch.cuda.empty_cache()
     launches8, hits8, session4, kept4 = phase_config4(g1, device, smi)
-    del g1
     launches9 = phase_serve(session4, kept4, smi)
     del session4
+    torch.cuda.empty_cache()
+    launches10 = phase_sharded(g1, cam1, device, smi)
+    del g1
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -2009,7 +2210,8 @@ def main() -> int:
                     "launches_rows_frame": launches7["rows"][name],
                     "launches_config4_frame": launches8[name],
                     "launches_config4_hits": hits8[name],
-                    "launches_serve_frame": launches9[name], **r})
+                    "launches_serve_frame": launches9[name],
+                    "launches_sharded_frame": launches10[name], **r})
     require(all(math.isfinite(k["ms"]) and math.isfinite(k["bound_ms"]) for k in out),
             f"non-finite time in {out}")
     print(json.dumps({"kernels": out}))

@@ -10,8 +10,9 @@ the merged multi-model frame included; the v1 chain's sort (K2 at the v1
 key layout) and compositor K6; K3 and K6 at tiles over 32 px (one block up
 to 64, a thread block cluster up to 256, 32-px parts in two launches
 above, also on a tile larger than the image); the app session's masked
-frame; the JPEG encoder's bytes on the card against the CPU's, and the web
-viewer's `frame_jpeg` over a session on the card.
+frame; the JPEG encoder's bytes on the card against the CPU's, the web
+viewer's `frame_jpeg` over a session on the card, and the sharded renderer
+over NCCL at world size 1 against the single-device frame.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -44,8 +45,8 @@ from wgpu_3dgs_viewer_app_tpu_torch.ops import (
     build_sorted_entries_fused, build_tile_lists, composite_tiles, composite_tiles_plain,
     composite_tiles_plain_v2, composite_tiles_v2, enumerate_entries_from_pre,
     enumerate_entries_from_pre_plain, enumerate_entries_fused, enumerate_entries_plain, kernels,
-    preprocess, preprocess_geometry_fused, preprocess_geometry_plain, sort_entries,
-    sort_entries_plain)
+    over_background, preprocess, preprocess_geometry_fused, preprocess_geometry_plain,
+    sort_entries, sort_entries_plain)
 from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import tile_list_entries
 from wgpu_3dgs_viewer_app_tpu_torch.testing import (compare_entries, compare_preprocess,
                                                     compare_sorted)
@@ -683,3 +684,43 @@ def test_viewer_server_frame_jpeg_on_card(dev):
     assert vs.frame_jpeg(85) is blob and dict(kernels.LAUNCHES) == _only()
     want = jpeg.encode_jpeg(jpeg.frame_to_u8(s.update()).cpu(), 85)
     assert blob == want and blob[:2] == b"\xff\xd8" and len(blob) > 2000
+
+
+def test_sharded_frame_on_card_matches_render_frame(dev):
+    """`parallel.render_sharded` over NCCL at world size 1 (an in-process
+    group): K5 once, K2 twice (local and owner sort), K3 once, and the image
+    bit for bit `render_frame`'s; the merged two-model frame likewise
+    against the single-device merged entries."""
+    import torch.distributed as dist
+
+    from wgpu_3dgs_viewer_app_tpu_torch.parallel import (make_mesh, render_frame_sharded_multi,
+                                                         render_sharded, shard_pod)
+    from wgpu_3dgs_viewer_app_tpu_torch.viewer import render_frame
+
+    comp = ALL_COMPRESSIONS[5]
+    cfg = TileConfig(256, 200, tile=16, max_dup=8)
+    view, proj = _camera(256, 200)
+    words = [flat_pod_to_words(pack_gaussians(make_random_scene(n, seed=s, extent=1.5), comp),
+                               comp) for n, s in ((20_000, 1), (7_000, 2))]
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        pods = [shard_pod(w, mesh) for w in words]
+        kernels.reset_launch_counts()
+        img = render_sharded(pods[0], mesh, comp, cfg, view, proj, sh_degree=3)
+        assert dict(kernels.LAUNCHES) == _only(enum_pack=1, sort=2, composite=1)
+        ref = render_frame(pods[0], comp, cfg, view, proj, EYE, sh_degree=3)
+        assert torch.equal(img, over_background(ref, (0.0, 0.0, 0.0)))
+        models = np.stack([EYE, EYE])
+        models[1, 2, 3] = 0.4
+        img, overflow = render_frame_sharded_multi(pods, mesh, "splats", comp, cfg, view, proj,
+                                                   models, [1, 0], np.zeros(3, np.float32))
+        assert overflow == 0
+        cfg_m = dataclasses.replace(cfg, model_bits=1)
+        parts = [enumerate_entries_from_pre(preprocess(p, comp, view, proj, m, 256, 200), cfg_m,
+                                            model_rank=r)
+                 for p, m, r in zip(pods, models, (1, 0))]
+        want = composite_tiles_v2(sort_entries(torch.cat(parts), cfg_m), cfg_m)
+        assert torch.equal(img[:200], over_background(want, (0.0, 0.0, 0.0)))
+    finally:
+        dist.destroy_process_group()

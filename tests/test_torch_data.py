@@ -40,7 +40,7 @@ def test_pod_words_byte_equal(i):
     assert jc.bytes_per_splat() == tc.bytes_per_splat()
     g = j_make_random_scene(3000, seed=11)
     ref = jcomp.flat_pod_to_words(jcomp.pack_gaussians(g, jc, use_native=False, layout="flat"), jc)
-    got = tcomp.flat_pod_to_words(tcomp.pack_gaussians(g, tc), tc)
+    got = tcomp.flat_pod_to_words(tcomp.pack_gaussians(g, tc, use_native=False), tc)
     assert set(ref) == set(got)
     for k in ref:
         assert ref[k].dtype == got[k].dtype and ref[k].shape == got[k].shape, k
@@ -75,7 +75,8 @@ def test_pod_from_jax_rows_layout(i):
     g = j_make_random_scene(300, seed=2)
     rows = jcomp.pack_gaussians(g, jc, use_native=False)  # (k, R, 128), padded
     pod = pod_from_jax(rows, tc, "cpu", n=g.count)
-    ref = tcomp.pod_to_tensors(tcomp.flat_pod_to_words(tcomp.pack_gaussians(g, tc), tc), "cpu")
+    ref = tcomp.pod_to_tensors(
+        tcomp.flat_pod_to_words(tcomp.pack_gaussians(g, tc, use_native=False), tc), "cpu")
     assert set(pod) == set(ref)
     for k in ref:
         assert torch.equal(pod[k], ref[k]), k

@@ -7,9 +7,11 @@ selection gates included, runs through hand-written CUDA kernels for Hopper
 (`csrc/`): the fused front-end (or, on the staged route, the plain
 preprocess and the enumerate-and-pack kernel), the entry sort and the tile
 compositor; selection and hit queries read the query-geometry pass. Each
-kernel has a plain torch version that CPU tensors take.
+kernel has a plain torch version that CPU tensors take. `parallel` renders
+one frame over the ranks of a `torch.distributed` group, and `data/native.py`
+packs splats with a C++ codec built at first use.
 """
 
-from . import app, core, data, mask, ops, query, utils, viewer
+from . import app, core, data, mask, ops, parallel, query, utils, viewer
 
 __version__ = "0.1.0"

@@ -14,6 +14,9 @@ import math
 
 import numpy as np
 
+# A 3-vector on the host: (3,) f32 numpy.
+Vec3 = np.ndarray
+
 
 def look_at_rh(eye, center, up) -> np.ndarray:
     """Right-handed look-at view matrix."""

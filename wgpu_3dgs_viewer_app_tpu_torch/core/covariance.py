@@ -45,6 +45,12 @@ def quat_rot_components(q: torch.Tensor) -> tuple:
     )
 
 
+def quat_to_mat3(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4) -> (..., 3, 3) rotation (small and test use)."""
+    r = quat_rot_components(q)
+    return torch.stack([torch.stack(row, -1) for row in r], -2)
+
+
 def cov3d_from_scale_rot(scale: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
     """Sigma = R S S^T R^T as (..., 6) uniques (xx, xy, xz, yy, yz, zz).
 
@@ -73,6 +79,18 @@ def transform_cov6_t(cov6c: tuple, m) -> tuple:
         return t(i, 0) * m[j][0] + t(i, 1) * m[j][1] + t(i, 2) * m[j][2]
 
     return (out(0, 0), out(0, 1), out(0, 2), out(1, 1), out(1, 2), out(2, 2))
+
+
+def transform_cov6(cov6: torch.Tensor, m) -> torch.Tensor:
+    """`transform_cov6_t` over stacked (..., 6) uniques (small and test use)."""
+    return torch.stack(transform_cov6_t(tuple(cov6[..., i] for i in range(6)), m), dim=-1)
+
+
+def unpack_cov3d(cov6: torch.Tensor) -> torch.Tensor:
+    """(..., 6) uniques -> (..., 3, 3) symmetric matrix (small and test use)."""
+    xx, xy, xz, yy, yz, zz = (cov6[..., i] for i in range(6))
+    return torch.stack([torch.stack([xx, xy, xz], -1), torch.stack([xy, yy, yz], -1),
+                        torch.stack([xz, yz, zz], -1)], -2)
 
 
 def project_cov3d_to_cov2d(cov6c: tuple, t_view: tuple, view3, focal: tuple,

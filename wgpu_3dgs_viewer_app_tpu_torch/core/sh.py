@@ -29,6 +29,31 @@ SH_C3 = (
 )
 
 
+N_COEFFS_FOR_DEGREE = {0: 0, 1: 3, 2: 8, 3: 15}
+
+
+def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
+    """(..., 3) unit view directions -> (..., 15) basis values of the rest
+    coefficients, those above `degree` zero."""
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    terms = sh_basis_terms(x, y, z, degree)
+    terms += [torch.zeros_like(x)] * (15 - len(terms))
+    return torch.stack(terms, dim=-1)
+
+
+def eval_sh(sh0_rgb: torch.Tensor, sh_rest: torch.Tensor, dirs: torch.Tensor, degree: int,
+            no_sh0: bool = False) -> torch.Tensor:
+    """SH -> linear RGB before the 0..1 clamp: 0.5 + C0 * sh0 (dropped with
+    `no_sh0`) plus the rest coefficients (..., 15, 3) against the basis of
+    `dirs` (..., 3), the unit directions from the camera to the splats."""
+    color = torch.full_like(sh0_rgb, 0.5)
+    if not no_sh0:
+        color = color + SH_C0 * sh0_rgb
+    if degree >= 1:
+        color = color + torch.einsum("...k,...kc->...c", sh_basis(dirs, degree), sh_rest)
+    return color
+
+
 def sh_basis_terms(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, degree: int) -> list:
     """Rest-coefficient basis values as a list of (N,) tensors."""
     terms = []

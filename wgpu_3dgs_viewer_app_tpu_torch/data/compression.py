@@ -115,9 +115,22 @@ def flat_pod_to_words(pod: dict, comp: Compressions) -> dict:
     return out
 
 
-def pack_gaussians(g: Gaussians, comp: Compressions) -> dict:
+def pack_gaussians(g: Gaussians, comp: Compressions, use_native: bool | None = None) -> dict:
     """Host-side pack: raw SoA -> flat raw pod (numpy; f16/u8 dtypes where
-    compressed). `flat_pod_to_words` turns it into the word pod."""
+    compressed). `flat_pod_to_words` turns it into the word pod.
+
+    As in the JAX package, the fused C++ codec (`data/native.py`) packs
+    wherever it builds (`use_native=None`, built at first use; a failed
+    build raises); `use_native=False` forces numpy, which is also what runs
+    on a machine with no C++ compiler. The codec's compiled arithmetic may
+    contract multiply-adds, so its f16 covariance can differ from numpy's by
+    one step in a few words."""
+    if use_native is not False:
+        from . import native
+
+        out = native.pack_gaussians_native(g, comp)
+        if out is not None:
+            return out
     n = g.count
     pos = np.ascontiguousarray(g.pos.astype(np.float32).T)  # (3, N)
     rgb = np.clip(0.5 + SH_C0 * g.sh0, 0.0, 1.0)
@@ -188,6 +201,19 @@ def make_sh_coeff_fn(pod: dict, comp: Compressions):
 
         return coeff
     return lambda k, c: sh[k * 3 + c]
+
+
+def unpack_sh(pod: dict, comp: Compressions) -> torch.Tensor:
+    """Word pod sh field -> (N, 15, 3) f32 rest coefficients (test and
+    reference use; the front-end dequantises with `make_sh_coeff_fn`)."""
+    coeff = make_sh_coeff_fn(pod, comp)
+    cols = [coeff(k, c) for k in range(15) for c in range(3)]
+    return torch.stack(cols, dim=-1).reshape(-1, 15, 3)
+
+
+def unpack_cov3d(pod: dict) -> torch.Tensor:
+    """Word pod cov3d field -> (N, 6) f32 uniques (test and reference use)."""
+    return torch.stack(cov3d_components(pod), dim=-1)
 
 
 def cov3d_components(pod: dict) -> tuple:

@@ -90,6 +90,12 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def camera_position_from_view(view) -> np.ndarray:
+    """Camera world position (3,) f32 from a rigid view matrix: -R^T t."""
+    view = np.asarray(view, np.float32)
+    return (-(view[:3, :3].T @ view[:3, 3])).astype(np.float32)
+
+
 def frame_scalars(view, proj, model, width: int, height: int, size: float = 1.0,
                   z_near: float = 0.1, z_far: float = 1e4) -> dict:
     """Per-frame scalars, each rounded to f32 as the reference computes
@@ -120,7 +126,7 @@ def frame_scalars(view, proj, model, width: int, height: int, size: float = 1.0,
         "height": float(height),
         "size": float(size32),
         "size2": float(size32 * size32),
-        "cam": (-(r.T @ view[:3, 3])).astype(np.float32).tolist(),
+        "cam": camera_position_from_view(view).tolist(),
         "z_near": _f32(z_near),
         "z_far": _f32(z_far),
         "r_pt": float(r_pt),
