@@ -18,11 +18,17 @@ Phases, each printing what it found:
      one config-2 model (ranks 0 and 2), also slot for slot against K1; K1
      with a model rank at the config-2 shapes (and its bound); K3 also at
      tiles 64 (one block of 1024 threads a tile), 128 (a cluster of 4 row
-     bands) and 320 (32-px parts in two launches) on the config-1 scene.
-     K1 and K5 are timed three ways (`wrapper_times`: events around the
-     wrapper, the kernel alone under torch.profiler, the host's time to
-     issue a call), with ptxas's registers and spills of each of their
-     instantiations;
+     bands) and 320 (32-px parts in two launches) on the config-1 scene;
+     K8, the preprocess, bit for bit its plain version (every field and
+     `valid` of every splat) on the config-1 scene (ungated), the config-3
+     scene (the step's rect selection with its selection edit and
+     highlight, a mask and per-splat edits) and one config-2 model (its
+     edits), and in every compression, SH degree and display mode at 20k
+     splats, with K5's entries from K8's planes equal to those from the
+     plain planes. K1, K5 and K8 are timed three ways (`wrapper_times`:
+     events around the wrapper, the kernel alone under torch.profiler, the
+     host's time to issue a call), with ptxas's registers and spills of
+     each of their instantiations;
   3. the golden fixture rendered through the port's CLI on cuda, held to the
      repo's golden gate (`tests/test_golden.py::assert_golden_close`), and
      the CLI's orbit sequence (`--frames 3 --orbit-step 20`), each frame
@@ -44,14 +50,16 @@ Phases, each printing what it found:
   6. BASELINE config 2: three 1M-splat models with per-model transforms and
      per-splat colour edits at 1920x1088, merged into one frame by a model
      rank in the sort key, on the fused route (K1 x3 -> K2 -> K3) and on the
-     staged route (plain preprocess -> K5, x3 -> K2 -> K3): 2 warm-up and 5
-     timed frames each, the launch counts of one frame, merged = per-model
+     staged route (K8 -> K5, x3 -> K2 -> K3): 2 warm-up and 5
+     timed frames each, the launch counts of one frame, K8 on the three
+     models alone against the plain preprocess, merged = per-model
      frames blended back to front, route against route, the rank and depth
      order of the sorted entries, then a hidden model, an order flip, a
      resize and a change of compression;
   7. the two paths off the viewer's frame, on the config-1 scene: the
-     v1 chain (plain preprocess -> `build_tile_lists` (K2) ->
-     `build_entry_planes` -> `composite_tiles` (K6) -> `over_background`)
+     v1 chain (K8 -> `build_tile_lists` (K2) -> `build_entry_planes` ->
+     `composite_tiles` (K6) -> `over_background`; K8 once a frame, and
+     each stage's peak memory and time alone)
      and the row-major v2 frame (K1 -> K2 -> `composite_tiles_v2(
      transposed=False, mxu=True)`, K3 in the quadratic-basis form), 2
      warm-up and 5 timed frames each with their launch counts, coverage and
@@ -94,10 +102,11 @@ Phases, each printing what it found:
      test_native.py`'s tolerances; then the config-1 frame through
      `parallel.render_sharded` over NCCL at world size 1 (an in-process
      group on a `HashStore`, destroyed at the end): 2 warm-up and 5 timed
-     frames against as many `viewer.render_frame` frames, K5 once, K2
-     twice (the local sort and the owner's), K3 once and K1 never a
-     frame, overflow 0 and `last_stats()`, the image bit for bit
-     `render_frame`'s, and each stage's time (local front-end and sort,
+     frames against as many `viewer.render_frame` frames, K8 and K5
+     once, K2 twice (the local sort and the owner's), K3 once and K1
+     never a frame, overflow 0 and `last_stats()`, the image bit for bit
+     `render_frame`'s (itself bit for bit the same pipeline on the plain
+     preprocess), and each stage's time (local front-end and sort,
      the count exchange and its host read, the entries' all_to_all, the
      owner's sort and composite, the gather) over 5 more frames.
 
@@ -146,6 +155,9 @@ KERNELS = {
                   "wgpu_3dgs_viewer_app_tpu/ops/binning.py:611"),
     "composite_v1": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/composite_v1.cu",
                      "wgpu_3dgs_viewer_app_tpu/ops/composite.py:163"),
+    # K8: the jitted preprocess (one XLA program on the TPU, no Pallas kernel).
+    "preprocess": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/geometry.cu",
+                   "wgpu_3dgs_viewer_app_tpu/ops/preprocess.py:107"),
 }
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes and f32 (non-tensor-core)
@@ -158,7 +170,8 @@ F32_OPS_PER_MS = 67e12 / 1e3
 # applied; K4 ~150 per splat plus ~110 per edit; K2 ~34 integer operations
 # per live entry (liveness, 4 radix passes) and 1 per slot; K3 22 per
 # (pixel, entry) blend; K5 ~60 per splat (key, colour bytes, f16 words,
-# tight cull) and K1's 40 per entry slot.
+# tight cull) and K1's 40 per entry slot; K8 K4's per splat, K1's per SH
+# coefficient and channel, and ~110 per edit applied.
 K1_OPS_SPLAT, K1_OPS_SH, K1_OPS_SLOT, OPS_EDIT = 230, 4, 40, 110
 K4_OPS_SPLAT, K2_OPS_LIVE, K3_OPS_BLEND = 150, 34, 22
 K5_OPS_SPLAT = 60
@@ -804,6 +817,151 @@ def phase_kernels_staged(g1, cam1, model2, device, rec: dict) -> None:
         f"pod words, edit SoA and {ent1.shape[0]} entry slots)")
 
 
+def k8_bound(pod, pre, gate_kw, n: int, sh_coeffs: int) -> tuple:
+    """K8's bound: the pod planes the degree reads (the SH words and norm8
+    range only at degree > 0) and the gate tensors read once, the 11 planes
+    and `valid` written once; operations counted per splat, SH coefficient
+    and edit."""
+    edits = (1 if "edit" in gate_kw else 0) + (1 if "selection_edit" in gate_kw else 0)
+    pod_in = [pod[k] for k in ("pos", "color0", "cov3d")]
+    if sh_coeffs:
+        pod_in += [pod[k] for k in ("sh", "sh_mn", "sh_span") if k in pod]
+    gate_tensors = [gate_kw.get(k) for k in ("mask_bits", "edit", "selection_bits")]
+    out = [getattr(pre, f) for f in pre.__dataclass_fields__]
+    ops = n * (K4_OPS_SPLAT + K1_OPS_SH * 3 * sh_coeffs + OPS_EDIT * edits)
+    return bound(nbytes(pod_in, gate_tensors, out), ops)
+
+
+def phase_kernels_preprocess(g1, cam1, g3, cam3, model2, device, rec: dict) -> None:
+    """Phase 2, continued: K8 (`preprocess_fused`) against the plain
+    `preprocess`, bit for bit on every field and `valid` of every splat, at
+    the config-1 (ungated), config-3 (every gate) and config-2 (one model,
+    its edits) shapes and in every compression, SH degree and display mode
+    at 20k splats; K5 fed K8's planes against K5 fed the plain planes, slot
+    for slot."""
+    import numpy as np
+    import torch
+
+    from wgpu_3dgs_viewer_app_tpu_torch.core import ModelTransform
+    from wgpu_3dgs_viewer_app_tpu_torch.data import (ALL_COMPRESSIONS, flat_pod_to_words,
+                                                     make_random_scene, pack_gaussians,
+                                                     pod_to_tensors)
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import (TileConfig, enumerate_entries_from_pre,
+                                                    preprocess, preprocess_fused,
+                                                    preprocess_geometry_fused)
+    from wgpu_3dgs_viewer_app_tpu_torch.query import select_rect
+    from wgpu_3dgs_viewer_app_tpu_torch.testing import compare_preprocess_bits
+
+    eye = np.eye(4, dtype=np.float32)
+    k8 = {"max_abs_err": 0.0, "library_ms": None}
+
+    def held(what, args, kw, cfg=None, rank=0):
+        """K8 against plain on `args`, `kw`: bit for bit, and (with `cfg`)
+        K5's entries from each; returns (K8's output, stats)."""
+        pre_k = preprocess_fused(*args, **kw)
+        pre_p = preprocess(*args, **kw)
+        st = compare_preprocess_bits(pre_k, pre_p)
+        if cfg is not None:
+            e_k = enumerate_entries_from_pre(pre_k, cfg, model_rank=rank)
+            e_p = enumerate_entries_from_pre(pre_p, cfg, model_rank=rank)
+            require(torch.equal(e_k, e_p), f"{what}: K5's entries from K8 differ from plain's")
+            st["entries"] = e_k.shape[0]
+            del e_k, e_p
+        del pre_p
+        return pre_k, st
+
+    # Config 1: 6M splats, ungated (the staged route's and the sharded
+    # frame's shapes), SH 3, norm8/half.
+    w, h, n = 1920, 1080, g1.count
+    comp, pod = pod_tensors(g1, device)
+    args = (pod, comp, cam1.view(), cam1.projection(w / h), eye, w, h)
+    cfg = TileConfig(w, h, tile=32, max_dup=4)
+    pre, st = held("config 1", args, {}, cfg)
+    b_ms, b_by = k8_bound(pod, pre, {}, n, 15)
+    t = wrapper_times(lambda: preprocess_fused(*args), "geometry_kernel")
+    k8.update(t)
+    k8.update({"plain_ms": cuda_ms(lambda: preprocess(*args), 2), "bound_ms": b_ms,
+               "bound_by": b_by})
+    log(f"phase 2 K8 preprocess, config-1 scene: {n} splats, {st['valid']} valid, every field "
+        f"and valid bit for bit the plain preprocess's, K5's {st['entries']} entry slots from "
+        f"each equal; kernel {t['ms']:.4f} ms by events around the wrapper "
+        f"({fmt_ms(t['device_ms'])} device only, {t['host_ms']:.4f} host to issue), plain "
+        f"{k8['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del pre, pod, args
+
+    # Config 3: 2M splats, every gate: the step's rect selection (on K4's
+    # geometry) with config 3's selection edit and highlight, a mask and
+    # per-splat edits.
+    n3 = g3.count
+    comp, pod = pod_tensors(g3, device)
+    args = (pod, comp, cam3.view(), cam3.projection(w / h), eye, w, h)
+    sel_edit, highlight = config3_pods()
+    gkw = {k: v for k, v in gates(n3, device, seed=5).items() if k in ("mask_bits", "edit")}
+    gkw.update(selection_bits=select_rect(preprocess_geometry_fused(*args), *CONFIG3_RECT),
+               selection_edit=sel_edit.as_arrays(),
+               highlight_rgba=np.asarray(highlight.rgba, np.float32))
+    pre, st = held("config 3 gated", args, gkw, cfg)
+    require(not torch.equal(pre.col_r, preprocess_fused(*args).col_r), "the gates changed nothing")
+    b_ms, by = k8_bound(pod, pre, gkw, n3, 15)
+    t = wrapper_times(lambda: preprocess_fused(*args, **gkw), "geometry_kernel")
+    k8.update({f"config3_gated_{k}": v for k, v in t.items()})
+    k8.update({"config3_gated_plain_ms": cuda_ms(lambda: preprocess(*args, **gkw), 2),
+               "config3_gated_bound_ms": b_ms})
+    log(f"phase 2 K8 gated (mask, edits, the step's selection edit and highlight), config-3 "
+        f"scene: {n3} splats, {st['valid']} valid, bit for bit the plain preprocess, K5 from each "
+        f"equal; kernel {t['ms']:.4f} ms ({fmt_ms(t['device_ms'])} device only, "
+        f"{t['host_ms']:.4f} host), plain {k8['config3_gated_plain_ms']:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({by})")
+    del pre, pod, args, gkw
+
+    # One config-2 model: 1M splats, its transform and edits, 1920x1088; K5
+    # at rank 2 of model_bits 2.
+    w2, h2 = CONFIG2_SIZE
+    n2 = model2.count
+    comp, pod = pod_tensors(model2, device)
+    cam = config2_camera()
+    dx, rot = CONFIG2_PLACEMENTS[1]
+    mmat = ModelTransform(pos=np.float32([dx, 0, 0]), rot=np.float32([0, rot, 0])).matrix()
+    flags, rgb, params = config2_edit(n2, 1)
+    edit = tuple(torch.from_numpy(a).to(device) for a in (flags.view(np.int32), rgb, params))
+    args = (pod, comp, cam.view(), cam.projection(w2 / h2), mmat, w2, h2)
+    cfg_m = TileConfig(w2, h2, tile=32, max_dup=4, model_bits=2)
+    pre, st = held("config 2", args, {"edit": edit}, cfg_m, rank=2)
+    b_ms, by = k8_bound(pod, pre, {"edit": edit}, n2, 15)
+    t = wrapper_times(lambda: preprocess_fused(*args, edit=edit), "geometry_kernel")
+    k8.update({f"config2_{k}": v for k, v in t.items()})
+    k8.update({"config2_plain_ms": cuda_ms(lambda: preprocess(*args, edit=edit), 3),
+               "config2_bound_ms": b_ms})
+    log(f"phase 2 K8, one config-2 model with its edits: {n2} splats, {st['valid']} valid, bit "
+        f"for bit the plain preprocess, K5 (rank 2 of model_bits 2) from each equal; kernel "
+        f"{t['ms']:.4f} ms ({fmt_ms(t['device_ms'])} device only, {t['host_ms']:.4f} host), plain "
+        f"{k8['config2_plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({by})")
+    del pre, pod, args, edit
+
+    # Every compression, SH degree and display mode (and no_sh0, and every
+    # gate) at 20k splats, as K1 is held.
+    g = make_random_scene(20_000, seed=4, extent=2.0, scale_range=(0.004, 0.05))
+    view, proj = cam1.view(), cam1.projection(w / h)
+    sweep = ((3, 0, False), (2, 1, False), (1, 2, False), (0, 0, False), (3, 1, True))
+    held_cases = 0
+    for comp in ALL_COMPRESSIONS:
+        pod = pod_to_tensors(flat_pod_to_words(pack_gaussians(g, comp), comp), device)
+        args = (pod, comp, view, proj, eye, w, h)
+        for deg, mode, no_sh0 in sweep:
+            held(f"{comp} deg {deg} mode {mode}", args,
+                 dict(sh_degree=deg, display_mode=mode, no_sh0=no_sh0))
+            held_cases += 1
+        held(f"{comp} gated", args, gates(g.count, device, seed=6))
+        held_cases += 1
+    k8["small_cases_bit_for_bit"] = held_cases
+    log(f"phase 2 K8 at 20k splats: {held_cases} cases (8 compressions x SH 3/2/1/0 in modes "
+        f"0/1/2/0, no_sh0 at SH 3, and every gate at SH 3) bit for bit the plain preprocess")
+    k8["ptxas"] = ptxas_rows("geometry_kernel")
+    log_ptxas("K4 (SH 4) and K8 (SH 0 f32 1 f16 2 norm8 3 none, cov 0 f32 1 f16, gated)",
+              k8["ptxas"])
+    rec["preprocess"] = k8
+
+
 def phase_golden(work_dir: str) -> None:
     """Phase 3: the golden fixture through the port's CLI on cuda."""
     import numpy as np
@@ -920,14 +1078,15 @@ def config0_scene():
 
 def v1_planes(pod, comp, cfg, cam, sh_degree: int = 3, display_mode: int = 0):
     """One model's EntryPlanes through the v1 chain's first stages: the
-    plain preprocess, `build_tile_lists` (K2) and `build_entry_planes`."""
+    preprocess (K8), `build_tile_lists` (K2) and `build_entry_planes`."""
     import numpy as np
 
-    from wgpu_3dgs_viewer_app_tpu_torch.ops import build_entry_planes, build_tile_lists, preprocess
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import (build_entry_planes, build_tile_lists,
+                                                    preprocess_fused)
 
-    pre = preprocess(pod, comp, cam.view(), cam.projection(cfg.width / cfg.height),
-                     np.eye(4, dtype=np.float32), cfg.width, cfg.height, sh_degree=sh_degree,
-                     display_mode=display_mode)
+    pre = preprocess_fused(pod, comp, cam.view(), cam.projection(cfg.width / cfg.height),
+                           np.eye(4, dtype=np.float32), cfg.width, cfg.height,
+                           sh_degree=sh_degree, display_mode=display_mode)
     return build_entry_planes(pre, build_tile_lists(pre, cfg), cfg)
 
 
@@ -974,7 +1133,7 @@ def phase_compositors(g1, cam1, v2_img, device, smi: str, rec: dict) -> dict:
     from wgpu_3dgs_viewer_app_tpu_torch.ops import (
         N_PLANES, TileConfig, build_entry_planes, build_sorted_entries_fused, build_tile_lists,
         composite_tiles, composite_tiles_plain, composite_tiles_plain_v2, composite_tiles_v2,
-        preprocess, sort_entries, sort_entries_plain)
+        preprocess_fused, sort_entries, sort_entries_plain)
     from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import ROW, tile_list_entries
     from wgpu_3dgs_viewer_app_tpu_torch.testing import compare_sorted
 
@@ -988,13 +1147,14 @@ def phase_compositors(g1, cam1, v2_img, device, smi: str, rec: dict) -> dict:
     for name in ("sort", "composite_v1"):
         require(launches[name] >= 1, f"kernel {name} never launched on the v1 path: {launches}")
     require(launches["composite"] == 0 and launches["fused"] == 0, f"v1 path: {launches}")
+    require(launches["preprocess"] == 7, f"v1 path, 7 frames: K8 {launches['preprocess']} times")
     coverage = check_frame(img, "v1 config 1")
     d = (img - v2_img).abs()
     out["composite_v1"] = launches
     rec_v1 = {"config1_v1_frame_ms": ms, "config1_v1_frame_peak_gib": peak,
               "config1_v1_vs_v2_frame_max": float(d.max()),
               "config1_v1_vs_v2_frame_mean": float(d.mean())}
-    log(f"phase 7 v1 frame, config 1: plain preprocess -> build_tile_lists (K2) -> "
+    log(f"phase 7 v1 frame, config 1: preprocess (K8) -> build_tile_lists (K2) -> "
         f"build_entry_planes -> composite_tiles (K6): {ms:.3f} ms/frame over 5 frames, peak "
         f"{peak:.2f} GiB, coverage {coverage:.3f}, launches {launches}; against phase 4's "
         f"(quantized v2) frame max {float(d.max()):.4e}, mean {float(d.mean()):.4e} (reported, "
@@ -1015,7 +1175,7 @@ def phase_compositors(g1, cam1, v2_img, device, smi: str, rec: dict) -> dict:
         stage_gib[name] = ((torch.cuda.max_memory_allocated() - before) / 2**30, before / 2**30)
         return result
 
-    pre = stage("preprocess", lambda: preprocess(pod, comp, view, proj, eye, w, h))
+    pre = stage("preprocess", lambda: preprocess_fused(pod, comp, view, proj, eye, w, h))
     # K2 at the v1 key layout, row for row against the stable plain sort.
     slots = tile_list_entries(pre, cfg)
     se1 = sort_entries(slots, cfg, shift=cfg.depth_bits)
@@ -1025,11 +1185,20 @@ def phase_compositors(g1, cam1, v2_img, device, smi: str, rec: dict) -> dict:
     del slots, se1
     lists = stage("build_tile_lists", lambda: build_tile_lists(pre, cfg))
     planes = stage("build_entry_planes", lambda: build_entry_planes(pre, lists, cfg))
-    del pre, lists
     got = stage("composite_tiles", lambda: composite_tiles(planes, cfg))
     rec_v1["config1_v1_stage_peak_gib"] = {k: v[0] for k, v in stage_gib.items()}
     log("phase 7 v1 frame memory, each stage's peak above what was resident before it: "
         + ", ".join(f"{k} +{v[0]:.3f} GiB (over {v[1]:.3f})" for k, v in stage_gib.items()))
+    # Each stage's time alone, by CUDA events (host gaps included).
+    stage_ms = {"preprocess": cuda_ms(lambda: preprocess_fused(pod, comp, view, proj, eye, w, h),
+                                      5),
+                "build_tile_lists": cuda_ms(lambda: build_tile_lists(pre, cfg), 3),
+                "build_entry_planes": cuda_ms(lambda: build_entry_planes(pre, lists, cfg), 3),
+                "composite_tiles": cuda_ms(lambda: composite_tiles(planes, cfg), 5)}
+    del pre, lists
+    rec_v1["config1_v1_stage_ms"] = stage_ms
+    log("phase 7 v1 frame stages, each run alone (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()) + f" [{smi}]")
 
     # K6 against its plain version on that frame's EntryPlanes.
     work = {}
@@ -1387,7 +1556,8 @@ def phase_config2(models: list, device, smi: str, rec: dict) -> dict:
     from wgpu_3dgs_viewer_app_tpu_torch.data.compression import cov3d_components
     from wgpu_3dgs_viewer_app_tpu_torch.ops import (composite_tiles_plain_v2, composite_tiles_v2,
                                                     kernels, over_background, preprocess,
-                                                    sort_entries, sort_entries_plain)
+                                                    preprocess_fused, sort_entries,
+                                                    sort_entries_plain)
     from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import ROW
     from wgpu_3dgs_viewer_app_tpu_torch.testing import compare_sorted
 
@@ -1410,24 +1580,27 @@ def phase_config2(models: list, device, smi: str, rec: dict) -> dict:
         kernels.reset_launch_counts()
         frame()
         one = dict(kernels.LAUNCHES)
-        want = {**dict.fromkeys(kernels.LAUNCHES, 0), "sort": 1, "composite": 1,
-                "fused" if fused else "enum_pack": n_models}
+        front = {"fused": n_models} if fused else {"preprocess": n_models, "enum_pack": n_models}
+        want = {**dict.fromkeys(kernels.LAUNCHES, 0), "sort": 1, "composite": 1, **front}
         require(one == want, f"config 2 {route}: one frame launched {one}, expected {want}")
         coverage = check_frame(img, f"config 2 {route}", size=CONFIG2_SIZE)
         images[route], out[route] = img, launches
         extra = ""
         if not fused:
-            def pre_all():
+            def pre_all(fn):
                 gt = v.gaussian_transform
                 for key in order:
                     m = v.models[key]
-                    preprocess(m.buffers.pod, v.comp, v._view, v._proj, m.transform.matrix(), w, h,
-                               sh_degree=gt.sh_deg.degree, no_sh0=gt.no_sh0, size=gt.size,
-                               display_mode=int(gt.display_mode), **v._gating_kwargs(m, False))
-            pre_ms = cuda_ms(pre_all, 3)
-            rec["enum_pack"]["config2_preprocess_plain_ms"] = pre_ms
-            extra = (f"; the plain preprocess of the three models, run alone, takes "
-                     f"{pre_ms:.3f} ms ({pre_ms / ms:.2f} of the frame)")
+                    fn(m.buffers.pod, v.comp, v._view, v._proj, m.transform.matrix(), w, h,
+                       sh_degree=gt.sh_deg.degree, no_sh0=gt.no_sh0, size=gt.size,
+                       display_mode=int(gt.display_mode), **v._gating_kwargs(m, False))
+            pre_ms = cuda_ms(lambda: pre_all(preprocess_fused), 5)
+            plain_ms = cuda_ms(lambda: pre_all(preprocess), 3)
+            rec["preprocess"]["config2_three_models_ms"] = pre_ms
+            rec["enum_pack"]["config2_preprocess_plain_ms"] = plain_ms
+            rec["preprocess"]["config2_staged_frame_ms"] = ms
+            extra = (f"; K8 on the three models, run alone, takes {pre_ms:.3f} ms "
+                     f"({pre_ms / ms:.2f} of the frame), the plain preprocess {plain_ms:.3f} ms")
         rec["fused" if fused else "enum_pack"][f"config2_{route}_frame_ms"] = ms
         log(f"phase 6 config 2, {route} route: {n_models} x {models[0].count} splats at {w}x{h}, "
             f"SH 3, norm8/half, tile 32, max_dup 4, per-splat edits: {ms:.3f} ms/frame over 5 "
@@ -2042,7 +2215,7 @@ def check_codec_pod(got: dict, ref: dict) -> int:
     return int((got["cov3d"] != ref["cov3d"]).sum())
 
 
-def phase_sharded(g, cam, device, smi: str) -> dict:
+def phase_sharded(g, cam, device, smi: str, rec: dict) -> dict:
     """Phase 10: the native codec on the config-1 scene (native pack against
     numpy's), then the config-1 frame through the sharded renderer over NCCL
     at world size 1, against `viewer.render_frame`. Returns the launches of
@@ -2053,7 +2226,9 @@ def phase_sharded(g, cam, device, smi: str) -> dict:
 
     from wgpu_3dgs_viewer_app_tpu_torch.data import (Compressions, flat_pod_to_words, native,
                                                      pack_gaussians)
-    from wgpu_3dgs_viewer_app_tpu_torch.ops import TileConfig, kernels, over_background
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import (TileConfig, build_sorted_entries,
+                                                    composite_tiles_v2, kernels, over_background,
+                                                    preprocess)
     from wgpu_3dgs_viewer_app_tpu_torch.parallel import (make_mesh, render_frame_sharded,
                                                          render_sharded, shard_pod)
     from wgpu_3dgs_viewer_app_tpu_torch.parallel.render_sharded import last_stats
@@ -2104,12 +2279,23 @@ def phase_sharded(g, cam, device, smi: str) -> dict:
                                    np.zeros(3, np.float32))
 
         ms, img, peak, launches7 = timed_frames(sharded)
-        ms_single, ref, peak_single, _ = timed_frames(single)
+        ms_single, ref, peak_single, single7 = timed_frames(single)
+        want1 = {**dict.fromkeys(single7, 0), "preprocess": 7, "enum_pack": 7, "sort": 7,
+                 "composite": 7}
+        require(single7 == want1, f"7 render_frame frames launched {single7}, expected {want1}")
+        # render_frame on K8 against the same pipeline on the plain preprocess.
+        plain = over_background(composite_tiles_v2(build_sorted_entries(
+            preprocess(pod, comp, view, proj, eye, cfg.width, cfg.height, sh_degree=3), cfg), cfg),
+            np.zeros(3, np.float32))
+        require(torch.equal(ref, plain), "render_frame on K8 differs from the plain preprocess's: "
+                f"max abs {float((ref - plain).abs().max())}")
+        del plain
         kernels.reset_launch_counts()
         img = sharded()
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        want = {**dict.fromkeys(launches, 0), "enum_pack": 1, "sort": 2, "composite": 1}
+        want = {**dict.fromkeys(launches, 0), "preprocess": 1, "enum_pack": 1, "sort": 2,
+                "composite": 1}
         require(launches == want, f"one sharded frame launched {launches}, expected {want}")
         want7 = {k: 7 * v for k, v in want.items()}
         require(launches7 == want7, f"7 sharded frames launched {launches7}, expected {want7}")
@@ -2125,13 +2311,16 @@ def phase_sharded(g, cam, device, smi: str) -> dict:
                                  np.zeros(3, np.float32), sh_degree=3, timings=tm)
             stages.append(tm)
         mean = {k: sum(s[k] for s in stages) / len(stages) for k in stages[0]}
+        rec["preprocess"].update(sharded_frame_ms=ms, sharded_render_frame_ms=ms_single,
+                                 sharded_stage_ms=mean)
     finally:
         dist.destroy_process_group()
     log(f"phase 10 sharded frame, config 1 over NCCL at world size 1 (group set up in "
         f"{init_s:.2f} s): {ms:.3f} ms/frame over 5 frames (render_frame {ms_single:.3f}), "
         f"peak {peak:.2f} GiB (render_frame {peak_single:.2f}), coverage {coverage:.3f}, "
         f"launches of one frame {launches}, overflow 0, last_stats {last_stats()}, bit for bit "
-        f"render_frame; stages, each closed by a sync, mean of 5 (ms): "
+        f"render_frame (which is bit for bit the same pipeline on the plain preprocess); stages, "
+        f"each closed by a sync, mean of 5 (ms): "
         + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in mean.items())
         + f"; phase {time.perf_counter() - t_phase:.1f} s [{smi}]")
     return launches
@@ -2171,6 +2360,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_kernels_staged(g1, cam1, models2[1], device, rec)
     torch.cuda.empty_cache()
+    phase_kernels_preprocess(g1, cam1, g3, cam3, models2[1], device, rec)
+    torch.cuda.empty_cache()
     # Scratch files of phase 3 go to the git-ignored build directory.
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="smoke_", dir=kernels.BUILD_DIR) as work_dir:
@@ -2182,6 +2373,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches2 = phase_config2(models2, device, smi, rec)
     launches["enum_pack"] = launches2["staged"]["enum_pack"]
+    launches["preprocess"] = launches2["staged"]["preprocess"]
     del models2
     torch.cuda.empty_cache()
     launches7 = phase_compositors(g1, cam1, v2_img, device, smi, rec)
@@ -2192,7 +2384,7 @@ def main() -> int:
     launches9 = phase_serve(session4, kept4, smi)
     del session4
     torch.cuda.empty_cache()
-    launches10 = phase_sharded(g1, cam1, device, smi)
+    launches10 = phase_sharded(g1, cam1, device, smi, rec)
     del g1
 
     out = []
@@ -2200,8 +2392,9 @@ def main() -> int:
         r = rec[name]
         require(launches[name] >= 1, f"kernel {name} never launched on its path: {launches}")
         # `launches`: on the path that is the kernel's main one (config 1 for
-        # K1-K3, config 3 for K4, the staged config 2 for K5, phase 7's v1
-        # frame for K6); config 4: one session frame, and the two hit queries.
+        # K1-K3, config 3 for K4, the staged config 2 for K5 and K8, phase
+        # 7's v1 frame for K6); config 4: one session frame, and the two hit
+        # queries.
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": launches[name],
                     "launches_config2_fused": launches2["fused"][name],

@@ -15,10 +15,10 @@ step that `chip_smoke.py` phase 5 times (`chip_smoke.config3_step`: query
 geometry -> select_rect -> set_selection -> selection edit + highlight ->
 Viewer.render); both at 1920x1080. Config 2 is the merged three-model frame
 that phase 6 times (`chip_smoke.config2_frame`) at 1920x1088, on the fused
-front-end route (K1 per model) or the staged one (plain preprocess + K5 per
-model). Config 1 also runs on the two routes of `chip_smoke.py` phase 7: the
-v1 chain (plain preprocess -> build_tile_lists -> build_entry_planes ->
-composite_tiles, `chip_smoke.v1_frame`) and the row-major v2 frame (K1 ->
+front-end route (K1 per model) or the staged one (K8 + K5 per model).
+Config 1 also runs on the two routes of `chip_smoke.py` phase 7: the v1
+chain (K8 -> build_tile_lists -> build_entry_planes -> composite_tiles,
+`chip_smoke.v1_frame`) and the row-major v2 frame (K1 ->
 K2 -> composite_tiles_v2(transposed=False, mxu=True), the one v2 compositor K3
 in its quadratic-basis form, `chip_smoke.rows_frame`).
 All at SH 3, norm8 SH + half cov3d, tile 32, max_dup 4. Prints one line

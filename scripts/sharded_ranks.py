@@ -19,8 +19,8 @@ gather). Rank 0 then renders the whole scene alone (`render_frame`, 2
 warm-up and `--frames` timed) and compares: the sharded image must be the
 same on every rank and within 1/255 + 1e-5 of the single-device one (the
 compositor's early exit goes by 128-entry chunks of each slab's own entry
-array), with overflow 0. On CUDA each rank must launch K5 once, K2 twice
-and K3 once a frame. The group is set up on `tcp://127.0.0.1` at a free
+array), with overflow 0. On CUDA each rank must launch K8 and K5 once, K2
+twice and K3 once a frame. The group is set up on `tcp://127.0.0.1` at a free
 port. Prints one JSON line per rank and a summary line (with `--out
 PATH`, also the summary and every rank's record as one JSON file); exits
 non-zero if a check fails.
@@ -181,8 +181,8 @@ def main() -> int:
             with open(f"{rec_path}.rank{r}") as f:
                 recs.append(json.load(f))
             print(json.dumps(recs[-1]))
-    want = {**dict.fromkeys(recs[0]["launches"], 0), "enum_pack": 1, "sort": 2,
-            "composite": 1} if args.device == "cuda" else None
+    want = {**dict.fromkeys(recs[0]["launches"], 0), "preprocess": 1, "enum_pack": 1,
+            "sort": 2, "composite": 1} if args.device == "cuda" else None
     checks = {
         "same_on_every_rank": all(r["same_on_every_rank"] for r in recs),
         "overflow_0": all(r["overflow"] == 0 for r in recs),

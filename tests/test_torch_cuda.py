@@ -2,7 +2,8 @@
 on the same CUDA tensors (the front-end K1 ungated and gated, the entry
 sort K2 row for row, the v2 compositor K3 in every mode of its wrapper
 (Horner and quadratic-basis exponent, flat, both `transposed`), the query
-geometry K4, the enumerate-and-pack kernel K5, K1 with a model rank; K1
+geometry K4, the preprocess K8 bit for bit (ungated and gated) and the
+staged route on it, the enumerate-and-pack kernel K5, K1 with a model rank; K1
 and K5 also on fewer splats than one block, one over a block boundary and
 into a row slice of a larger tensor), the
 wrappers' input checks, and the whole slice on the card against the CPU,
@@ -45,13 +46,13 @@ from wgpu_3dgs_viewer_app_tpu_torch.ops import (
     build_sorted_entries_fused, build_tile_lists, composite_tiles, composite_tiles_plain,
     composite_tiles_plain_v2, composite_tiles_v2, enumerate_entries_from_pre,
     enumerate_entries_from_pre_plain, enumerate_entries_fused, enumerate_entries_plain, kernels,
-    over_background, preprocess, preprocess_geometry_fused, preprocess_geometry_plain,
-    sort_entries, sort_entries_plain)
+    over_background, preprocess, preprocess_fused, preprocess_geometry_fused,
+    preprocess_geometry_plain, sort_entries, sort_entries_plain)
 from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import tile_list_entries
 from wgpu_3dgs_viewer_app_tpu_torch.testing import (compare_entries, compare_preprocess,
-                                                    compare_sorted)
+                                                    compare_preprocess_bits, compare_sorted)
 from wgpu_3dgs_viewer_app_tpu_torch.utils import jpeg
-from wgpu_3dgs_viewer_app_tpu_torch.viewer import MultiModelViewer, Viewer
+from wgpu_3dgs_viewer_app_tpu_torch.viewer import MultiModelViewer, Viewer, render_frame
 
 pytestmark = pytest.mark.cuda
 
@@ -197,9 +198,75 @@ def test_geometry_kernel_matches_plain(dev, ci, mode, gated):
     assert stats["valid"] > 1000, stats
 
 
+@pytest.mark.parametrize("ci", range(8), ids=lambda i: f"{ALL_COMPRESSIONS[i].sh.value}-"
+                                                      f"{ALL_COMPRESSIONS[i].cov3d.value}")
+@pytest.mark.parametrize("deg,mode,no_sh0,n", [
+    (3, 0, False, 20000), (2, 1, False, 20000), (1, 2, False, 20000), (0, 0, False, 20000),
+    (3, 1, True, 20000), (3, 0, False, 100), (2, 2, False, 257)])
+def test_preprocess_kernel_matches_plain(dev, ci, deg, mode, no_sh0, n):
+    """K8 vs the plain preprocess bit for bit, every field and `valid` of
+    every splat: all compressions, SH 0-3, the three display modes,
+    `no_sh0`, fewer splats than one block and one over a block boundary."""
+    comp = ALL_COMPRESSIONS[ci]
+    pod = _pod(comp, n, dev, seed=ci)
+    view, proj = _camera(1920, 1080)
+    kw = dict(sh_degree=deg, no_sh0=no_sh0, display_mode=mode)
+    before = kernels.LAUNCHES["preprocess"]
+    got = preprocess_fused(pod, comp, view, proj, EYE, 1920, 1080, **kw)
+    assert kernels.LAUNCHES["preprocess"] == before + 1
+    stats = compare_preprocess_bits(got, preprocess(pod, comp, view, proj, EYE, 1920, 1080, **kw))
+    assert stats["valid"] > n // 20, stats
+
+
+@pytest.mark.parametrize("pattern", list(GATE_PATTERNS))
+@pytest.mark.parametrize("ci,deg,mode", [(5, 3, 0), (0, 2, 1), (3, 1, 2), (6, 0, 0)])
+def test_gated_preprocess_kernel_matches_plain(dev, pattern, ci, deg, mode):
+    """Gated K8 vs the gated plain preprocess bit for bit, each gate alone
+    and together, in four compressions, SH degrees and display modes; the
+    gates change the output."""
+    comp = ALL_COMPRESSIONS[ci]
+    pod = _pod(comp, 20000, dev, seed=11)
+    view, proj = _camera(1920, 1080)
+    gates = _gates(20000, dev, GATE_PATTERNS[pattern])
+    args = (pod, comp, view, proj, EYE, 1920, 1080)
+    kw = dict(sh_degree=deg, display_mode=mode)
+    got = preprocess_fused(*args, **kw, **gates)
+    stats = compare_preprocess_bits(got, preprocess(*args, **kw, **gates))
+    assert stats["valid"] > 1000, stats
+    with pytest.raises(AssertionError):
+        compare_preprocess_bits(got, preprocess_fused(*args, **kw))
+
+
+def test_staged_route_runs_preprocess_kernel(dev):
+    """The staged route on K8: K5 fed K8's planes writes the entries K5 fed
+    the plain planes writes, slot for slot; `render_frame` launches K8, K5,
+    K2 and K3 once each and equals the same pipeline on the plain
+    preprocess bit for bit; the viewer's staged route launches K8 once a
+    model."""
+    comp = ALL_COMPRESSIONS[5]
+    pod = _pod(comp, 20000, dev, seed=2)
+    cfg = TileConfig(512, 384, tile=16, max_dup=8)
+    view, proj = _camera(512, 384)
+    gates = _gates(20000, dev, ("mask", "edit", "sel_edit", "highlight"))
+    pre_k = preprocess_fused(pod, comp, view, proj, EYE, 512, 384, **gates)
+    pre_p = preprocess(pod, comp, view, proj, EYE, 512, 384, **gates)
+    assert torch.equal(enumerate_entries_from_pre(pre_k, cfg),
+                       enumerate_entries_from_pre(pre_p, cfg))
+    kernels.reset_launch_counts()
+    img = render_frame(pod, comp, cfg, view, proj, EYE, **gates)
+    assert kernels.LAUNCHES == _only(preprocess=1, enum_pack=1, sort=1, composite=1)
+    assert torch.equal(img, composite_tiles_v2(build_sorted_entries(pre_p, cfg), cfg))
+    v = MultiModelViewer(512, 384, tile=16, max_dup=8, device=dev, fused=False)
+    for i in range(2):
+        v.add_model(f"m{i}", make_random_scene(3000, seed=i, extent=1.2))
+    kernels.reset_launch_counts()
+    v.render(CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -4.5)))
+    assert kernels.LAUNCHES == _only(preprocess=2, enum_pack=2, sort=1, composite=1)
+
+
 def test_gate_wrappers_reject_bad_inputs(dev):
-    """Gate tensors of the wrong dtype, shape or device are refused by K1's
-    and K4's wrappers, before any launch."""
+    """Gate tensors of the wrong dtype, shape or device are refused by K1's,
+    K4's and K8's wrappers, before any launch; so is an SH degree over 3."""
     comp = ALL_COMPRESSIONS[5]
     n = 1000
     pod = _pod(comp, n, dev)
@@ -221,9 +288,13 @@ def test_gate_wrappers_reject_bad_inputs(dev):
     for kw, name in bad:
         with pytest.raises(ValueError, match=name):
             enumerate_entries_fused(pod, comp, cfg, view, proj, EYE, **kw)
+        with pytest.raises(ValueError, match=name):
+            preprocess_fused(pod, comp, view, proj, EYE, 256, 256, **kw)
         if "selection_bits" not in kw:
             with pytest.raises(ValueError, match=name):
                 preprocess_geometry_fused(pod, comp, view, proj, EYE, 256, 256, **kw)
+    with pytest.raises(ValueError, match="sh_degree 4"):
+        preprocess_fused(pod, comp, view, proj, EYE, 256, 256, sh_degree=4)
     assert kernels.LAUNCHES == before
 
 
@@ -556,7 +627,7 @@ def test_merged_viewer_on_card_matches_cpu(dev, fused):
     cam = CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -4.5))
     kernels.reset_launch_counts()
     got = views[str(dev)].render(cam)
-    front = {"fused": 3} if fused else {"enum_pack": 3}
+    front = {"fused": 3} if fused else {"preprocess": 3, "enum_pack": 3}
     assert kernels.LAUNCHES == _only(sort=1, composite=1, **front)
     ref = views["cpu"].render(cam)
     img, gold = (np.clip(x.cpu().numpy() * 255.0, 0, 255).astype(np.uint8).astype(np.int16)
@@ -688,14 +759,13 @@ def test_viewer_server_frame_jpeg_on_card(dev):
 
 def test_sharded_frame_on_card_matches_render_frame(dev):
     """`parallel.render_sharded` over NCCL at world size 1 (an in-process
-    group): K5 once, K2 twice (local and owner sort), K3 once, and the image
-    bit for bit `render_frame`'s; the merged two-model frame likewise
-    against the single-device merged entries."""
+    group): K8 and K5 once, K2 twice (local and owner sort), K3 once, and the
+    image bit for bit `render_frame`'s; the merged two-model frame likewise
+    against the single-device merged entries on the plain preprocess."""
     import torch.distributed as dist
 
     from wgpu_3dgs_viewer_app_tpu_torch.parallel import (make_mesh, render_frame_sharded_multi,
                                                          render_sharded, shard_pod)
-    from wgpu_3dgs_viewer_app_tpu_torch.viewer import render_frame
 
     comp = ALL_COMPRESSIONS[5]
     cfg = TileConfig(256, 200, tile=16, max_dup=8)
@@ -708,7 +778,7 @@ def test_sharded_frame_on_card_matches_render_frame(dev):
         pods = [shard_pod(w, mesh) for w in words]
         kernels.reset_launch_counts()
         img = render_sharded(pods[0], mesh, comp, cfg, view, proj, sh_degree=3)
-        assert dict(kernels.LAUNCHES) == _only(enum_pack=1, sort=2, composite=1)
+        assert dict(kernels.LAUNCHES) == _only(preprocess=1, enum_pack=1, sort=2, composite=1)
         ref = render_frame(pods[0], comp, cfg, view, proj, EYE, sh_degree=3)
         assert torch.equal(img, over_background(ref, (0.0, 0.0, 0.0)))
         models = np.stack([EYE, EYE])

@@ -1,9 +1,9 @@
-// The per-splat section that kernels K1 (fused.cu) and K4 (geometry.cu)
-// share, so the two cannot drift apart: the frame scalars, the loads of the
-// pod words and gate records (a kernel issues them all before its
+// The per-splat section that kernels K1 (fused.cu), K4 and K8 (geometry.cu)
+// share, so they cannot drift apart: the frame scalars, the loads of the
+// pod words, SH words and gate records (a kernel issues them all before its
 // arithmetic), pod decode -> model/view transform -> projection -> EWA
-// conic and radius, the colour edit, the gates (mask, per-splat edit,
-// selection edit, highlight) and the opacity-aware extent.
+// conic and radius, SH -> RGB, the colour edit, the gates (mask, per-splat
+// edit, selection edit, highlight) and the opacity-aware extent.
 //
 // Every expression repeats, in order, the plain version in
 // ops/preprocess.py (and core/edit.py::apply_edit_components for the edit);
@@ -177,6 +177,104 @@ __device__ __forceinline__ SplatGeometry splat_geometry(const FrameParams& fp, i
     o.cc = fp.inv_pt;
   }
   return o;
+}
+
+// u32 words of SH coefficients a splat holds (degree 3), by compression.
+template <int SH>
+constexpr int kShWords = SH == SH_SINGLE ? 45 : SH == SH_HALF ? 23 : SH == SH_NORM8 ? 12 : 0;
+
+// Coefficient i = k * 3 + c of the splat, unpacked from its words in registers.
+template <int SH>
+__device__ __forceinline__ float sh_coeff(const uint32_t* w, float mn, float scale, int i) {
+  if (SH == SH_SINGLE) return __uint_as_float(w[i]);
+  if (SH == SH_HALF) return gs_f16_bits_to_f32((w[i / 2] >> (16 * (i % 2))) & 0xFFFFu);
+  if (SH == SH_NORM8) return (float)((w[i / 4] >> (8 * (i % 4))) & 0xFFu) * scale + mn;
+  return 0.0f;
+}
+
+// One splat's SH words (those the degree needs, each once; the rest 0) and
+// its norm8 range, loaded before any arithmetic uses them.
+template <int SH>
+struct ShWords {
+  uint32_t w[kShWords<SH> > 0 ? kShWords<SH> : 1];
+  float mn, span;
+  int n_coef;  // rest coefficients of the degree: 0, 3, 8 or 15
+};
+
+template <int SH>
+__device__ __forceinline__ ShWords<SH> load_sh(int sh_degree, const void* __restrict__ sh,
+                                               const float* __restrict__ sh_mn,
+                                               const float* __restrict__ sh_span, int64_t n,
+                                               int64_t s) {
+  ShWords<SH> o;
+  o.n_coef = sh_degree >= 3 ? 15 : sh_degree == 2 ? 8 : sh_degree == 1 ? 3 : 0;
+  const int n_words = SH == SH_SINGLE ? 3 * o.n_coef
+                      : SH == SH_HALF ? (3 * o.n_coef + 1) / 2
+                                      : (3 * o.n_coef + 3) / 4;
+  constexpr int kW = kShWords<SH>;
+#pragma unroll
+  for (int i = 0; i < kW; ++i)
+    o.w[i] = i < n_words ? static_cast<const uint32_t*>(sh)[i * n + s] : 0u;
+  const bool norm8 = SH == SH_NORM8 && o.n_coef > 0;
+  o.mn = norm8 ? sh_mn[s] : 0.0f;
+  o.span = norm8 ? sh_span[s] : 0.0f;
+  return o;
+}
+
+// SH -> RGB (the degree-0 term is the u8 colour0, or 0.5 under no_sh0),
+// clamped to [0, 1]. Unrolled over the 15 terms so the basis and the words
+// stay in registers; each channel's sum in the plain version's order, the
+// three channels interleaved, and the degree tested once per band.
+template <int SH>
+__device__ __forceinline__ void sh_color(const FrameParams& fp, int no_sh0, const ShWords<SH>& sw,
+                                         const SplatGeometry& sg, float col[3]) {
+  col[0] = no_sh0 ? 0.5f : sg.r;
+  col[1] = no_sh0 ? 0.5f : sg.g;
+  col[2] = no_sh0 ? 0.5f : sg.b;
+  const int n_coef = sw.n_coef;
+  if (n_coef > 0) {
+    const float dx = sg.wx - fp.cam[0], dy = sg.wy - fp.cam[1], dz = sg.wz - fp.cam[2];
+    const float inv_n = rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-18f));
+    const float x = dx * inv_n, y = dy * inv_n, z = dz * inv_n;
+    float b[15] = {};
+    b[0] = -0.4886025119029199f * y;
+    b[1] = 0.4886025119029199f * z;
+    b[2] = -0.4886025119029199f * x;
+    const float xx2 = x * x, yy2 = y * y, zz2 = z * z;
+    const float xy2 = x * y, yz2 = y * z, xz2 = x * z;
+    if (n_coef >= 8) {
+      b[3] = 1.0925484305920792f * xy2;
+      b[4] = -1.0925484305920792f * yz2;
+      b[5] = 0.31539156525252005f * (2.0f * zz2 - xx2 - yy2);
+      b[6] = -1.0925484305920792f * xz2;
+      b[7] = 0.5462742152960396f * (xx2 - yy2);
+    }
+    if (n_coef >= 15) {
+      b[8] = -0.5900435899266435f * y * (3.0f * xx2 - yy2);
+      b[9] = 2.890611442640554f * xy2 * z;
+      b[10] = -0.4570457994644658f * y * (4.0f * zz2 - xx2 - yy2);
+      b[11] = 0.3731763325901154f * z * (2.0f * zz2 - 3.0f * xx2 - 3.0f * yy2);
+      b[12] = -0.4570457994644658f * x * (4.0f * zz2 - xx2 - yy2);
+      b[13] = 1.445305721320277f * z * (xx2 - yy2);
+      b[14] = -0.5900435899266435f * x * (xx2 - yy2);
+    }
+    const float scale = sw.span * (1.0f / 255.0f);
+    float acc[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) acc[c] = b[0] * sh_coeff<SH>(sw.w, sw.mn, scale, c);
+#pragma unroll
+    for (int k = 1; k < 15; ++k) {
+      if (k == 3 && n_coef < 8) break;
+      if (k == 8 && n_coef < 15) break;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        acc[c] = acc[c] + b[k] * sh_coeff<SH>(sw.w, sw.mn, scale, k * 3 + c);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) col[c] = acc[c] + col[c];
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) col[c] = clampf(col[c], 0.0f, 1.0f);
 }
 
 // One colour edit (core/edit.py::apply_edit_components). A record whose

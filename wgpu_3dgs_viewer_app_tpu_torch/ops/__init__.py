@@ -4,7 +4,7 @@ from .binning import (N_PLANES, PLANE_FIELDS, SENTINEL, EntryPlanes, SortedEntri
 from .composite import (composite_tiles, composite_tiles_plain, composite_tiles_plain_v2,
                         composite_tiles_v2, over_background)
 from .fused import (build_sorted_entries_fused, enumerate_entries_fused, enumerate_entries_plain,
-                    preprocess_geometry_fused, preprocess_geometry_plain)
+                    preprocess_fused, preprocess_geometry_fused, preprocess_geometry_plain)
 from .preprocess import PreprocessOut, preprocess
 from .sort import sort_entries, sort_entries_plain
 
@@ -29,6 +29,7 @@ __all__ = [
     "build_sorted_entries_fused",
     "enumerate_entries_fused",
     "enumerate_entries_plain",
+    "preprocess_fused",
     "preprocess_geometry_fused",
     "preprocess_geometry_plain",
     "PreprocessOut",

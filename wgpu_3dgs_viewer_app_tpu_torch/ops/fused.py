@@ -11,6 +11,11 @@
   same name: the degree-0 preprocess the selection and hit queries read. On
   a CUDA pod it launches kernel K4 (`csrc/geometry.cu`); on a CPU pod it
   runs its plain version, `preprocess_geometry_plain`.
+- `preprocess_fused` is the staged front-end's preprocess (SH 0-3, every
+  gate) as one kernel, K8 (`csrc/geometry.cu`, the same template as K4), on
+  a CUDA pod; on a CPU pod it runs the plain `preprocess`. The reference
+  runs that function as one XLA program (`jax.jit`); the plain version in
+  eager torch would be ~1,100-3,400 launches on the card.
 
 The kernels read the gate tensors where they lie: `mask_bits` and
 `selection_bits` as (N,) uint8, the per-splat edit as int32 flags (N,),
@@ -130,6 +135,15 @@ def enumerate_entries_plain(pod: dict, comp: Compressions, cfg: TileConfig, view
     return enumerate_entries_from_pre_plain(pre, cfg, model_rank)
 
 
+def _sh_tensors(pod: dict, comp: Compressions) -> tuple:
+    """The pod's SH words and its norm8 range (None where the compression
+    has none), as K1 and K8 read them."""
+    sh = pod.get("sh") if comp.sh != ShCompression.REMOVE else None
+    if comp.sh == ShCompression.NORM8:
+        return sh, pod["sh_mn"], pod["sh_span"]
+    return sh, None, None
+
+
 def _enumerate_entries_cuda(pod, comp, cfg, view, proj, model, sh_degree, no_sh0, size,
                             display_mode, model_rank, gates: dict, out=None) -> torch.Tensor:
     lib = kernels.library()
@@ -147,8 +161,7 @@ def _enumerate_entries_cuda(pod, comp, cfg, view, proj, model, sh_degree, no_sh0
     else:
         kernels.require(out, "out", torch.int32, (n * cfg.max_dup, 4), pod["color0"].device)
     p = kernels.ptr
-    sh = pod.get("sh") if comp.sh != ShCompression.REMOVE else None
-    mn, span = (pod["sh_mn"], pod["sh_span"]) if comp.sh == ShCompression.NORM8 else (None, None)
+    sh, mn, span = _sh_tensors(pod, comp)
     kernels.check(lib.gs_fused_frontend(frame, iparams, p(pod["pos"]), p(pod["color0"]),
                                         p(pod["cov3d"]), p(sh), p(mn), p(span),
                                         *(p(t) for t in gt), p(out), kernels.stream()),
@@ -220,26 +233,31 @@ def preprocess_geometry_plain(pod: dict, comp: Compressions, view, proj, model, 
                       display_mode=display_mode, mask_bits=mask_bits, edit=edit)
 
 
-def _geometry_cuda(pod, comp, view, proj, model, width, height, size, display_mode, mask_bits,
-                   edit) -> PreprocessOut:
+def _planes_cuda(entry: str, counter: str, pod, comp, view, proj, model, width, height,
+                 sh_degree, no_sh0, size, display_mode, gates: dict) -> PreprocessOut:
+    """Launch K4 (`gs_geometry`: no SH read, mask and edit gates) or K8
+    (`gs_preprocess`) into the 11 f32 planes and `valid` of a
+    PreprocessOut."""
     lib = kernels.library()
     n = pod["color0"].shape[-1]
     dev = pod["color0"].device
-    _require_pod(pod, comp, n, sh=False)
-    if display_mode not in (0, 1, 2):
-        raise ValueError(f"display_mode {display_mode} out of range")
-    code, _, _, gt = _cuda_gates(n, dev, mask_bits=mask_bits, edit=edit)
+    with_sh = entry == "gs_preprocess"
+    _require_pod(pod, comp, n, sh=with_sh)
+    if not 0 <= sh_degree <= 3 or display_mode not in (0, 1, 2):
+        raise ValueError(f"sh_degree {sh_degree} / display_mode {display_mode} out of range")
+    code, sel_flags, consts, gt = _cuda_gates(n, dev, **gates)
     fs = frame_scalars(view, proj, model, width, height, size)
-    frame = (ctypes.c_float * _FRAME_FLOATS)(*_frame_param_array(fs, None))
-    iparams = _int_param_array(n, comp, display_mode, code)
+    frame = (ctypes.c_float * _FRAME_FLOATS)(*_frame_param_array(fs, None, consts))
+    iparams = _int_param_array(n, comp, display_mode, code, sh_degree, no_sh0,
+                               sel_flags=sel_flags)
     planes = torch.empty((11, n), dtype=torch.float32, device=dev)
     valid = torch.empty(n, dtype=torch.bool, device=dev)
     p = kernels.ptr
-    mask, _, flags, rgb, params = gt
-    kernels.check(lib.gs_geometry(frame, iparams, p(pod["pos"]), p(pod["color0"]),
-                                  p(pod["cov3d"]), p(mask), p(flags), p(rgb), p(params),
-                                  p(planes), p(valid), kernels.stream()), "gs_geometry")
-    kernels.LAUNCHES["geometry"] += 1
+    sh = _sh_tensors(pod, comp) if with_sh else (None, None, None)
+    kernels.check(getattr(lib, entry)(frame, iparams, p(pod["pos"]), p(pod["color0"]),
+                                      p(pod["cov3d"]), *(p(t) for t in sh), *(p(t) for t in gt),
+                                      p(planes), p(valid), kernels.stream()), entry)
+    kernels.LAUNCHES[counter] += 1
     return PreprocessOut(*planes.unbind(0), valid=valid)
 
 
@@ -249,7 +267,39 @@ def preprocess_geometry_fused(pod: dict, comp: Compressions, view, proj, model, 
     """Degree-0 per-splat geometry for the queries -> PreprocessOut: kernel
     K4 on a CUDA pod, the plain version on a CPU pod. Gates: `mask_bits` and
     the per-splat `edit`, as in `preprocess`."""
-    args = (pod, comp, view, proj, model, width, height, size, display_mode, mask_bits, edit)
     if pod["color0"].device.type == "cpu":
-        return preprocess_geometry_plain(*args)
-    return _geometry_cuda(*args)
+        return preprocess_geometry_plain(pod, comp, view, proj, model, width, height, size,
+                                         display_mode, mask_bits, edit)
+    return _planes_cuda("gs_geometry", "geometry", pod, comp, view, proj, model, width, height,
+                        0, False, size, display_mode, dict(mask_bits=mask_bits, edit=edit))
+
+
+def preprocess_fused(
+    pod: dict,
+    comp: Compressions,
+    view,
+    proj,
+    model,
+    width: int,
+    height: int,
+    sh_degree: int = 3,
+    no_sh0: bool = False,
+    size: float = 1.0,
+    display_mode: int = 0,
+    mask_bits=None,
+    edit=None,
+    selection_bits=None,
+    selection_edit=None,
+    highlight_rgba=None,
+) -> PreprocessOut:
+    """The per-splat preprocess -> PreprocessOut: kernel K8 on a CUDA pod,
+    the plain `preprocess` on a CPU pod. Arguments and gates as in
+    `preprocess`; only the given gates cost anything. The fields are rows
+    of one (11, N) f32 tensor on the card."""
+    gates = dict(mask_bits=mask_bits, edit=edit, selection_bits=selection_bits,
+                 selection_edit=selection_edit, highlight_rgba=highlight_rgba)
+    if pod["color0"].device.type == "cpu":
+        return preprocess(pod, comp, view, proj, model, width, height, sh_degree=sh_degree,
+                          no_sh0=no_sh0, size=size, display_mode=display_mode, **gates)
+    return _planes_cuda("gs_preprocess", "preprocess", pod, comp, view, proj, model, width,
+                        height, sh_degree, no_sh0, size, display_mode, gates)

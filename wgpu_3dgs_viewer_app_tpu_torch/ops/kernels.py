@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--fmad=false"]
 
 LAUNCHES = {"fused": 0, "sort": 0, "composite": 0, "geometry": 0, "enum_pack": 0,
-            "composite_v1": 0}
+            "composite_v1": 0, "preprocess": 0}
 # Seconds the last build in this process took (None: no build ran).
 build_seconds = None
 # ptxas's report of each kernel of the last build in this process, by
@@ -50,7 +50,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "gs_fused_frontend": [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I)] + [_P] * 13,
-    "gs_geometry": [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I)] + [_P] * 10,
+    "gs_geometry": [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I)] + [_P] * 14,
+    "gs_preprocess": [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I)] + [_P] * 14,
     "gs_enum_pack": [_I] * 8 + [_F] * 2 + [_P] * 14,
     "gs_sort_num_tiles": [ctypes.c_longlong],
     "gs_sort_meta_words": [],

@@ -4,9 +4,10 @@ Counterpart of `wgpu_3dgs_viewer_app_tpu.parallel.render_sharded`, with
 its names and contract. The ranks call it SPMD, each on its own shard:
 
 - **Splat axis = data parallel.** `shard_pod` gives each rank a
-  contiguous run of splats. Each rank preprocesses its run (the plain
-  `preprocess`), enumerates its entries in the GLOBAL key layout (kernel
-  K5 on CUDA) and sorts them (K2), with no communication.
+  contiguous run of splats. Each rank preprocesses its run
+  (`preprocess_fused`: kernel K8 on CUDA), enumerates its entries in the
+  GLOBAL key layout (kernel K5 on CUDA) and sorts them (K2), with no
+  communication.
 - **Tile axis = output parallel.** The screen is cut into one slab of
   whole tile rows per rank (`slab_config`); rank r owns slab r. A rank's
   sorted entries hold one contiguous run per slab, which starts at the run
@@ -51,7 +52,7 @@ from ..data.compression import Compressions, pod_to_tensors
 from ..ops.binning import SENTINEL  # noqa: F401
 from ..ops.binning import SortedEntries, TileConfig, enumerate_entries_from_pre
 from ..ops.composite import composite_tiles_v2, over_background
-from ..ops.preprocess import preprocess
+from ..ops.fused import preprocess_fused
 from ..ops.sort import sort_entries
 
 # Routing stats of the last `render_sharded` in this process, for the app
@@ -272,8 +273,8 @@ def render_frame_sharded(pod: dict, mesh: Mesh, axis: str, comp: Compressions,
     sort and composite, the gather), each closed by a device sync."""
     _check_axis(mesh, axis)
     t0 = _now(timings, mesh.device)
-    pre = preprocess(pod, comp, view, proj, model, cfg.width, cfg.height,
-                     sh_degree=sh_degree, display_mode=display_mode)
+    pre = preprocess_fused(pod, comp, view, proj, model, cfg.width, cfg.height,
+                           sh_degree=sh_degree, display_mode=display_mode)
     entries = enumerate_entries_from_pre(pre, cfg)
     return _frame_from_entries(entries, mesh, cfg, background, display_mode, capacity_factor,
                                timings, t0)
@@ -300,8 +301,9 @@ def render_frame_sharded_multi(pods: tuple, mesh: Mesh, axis: str, comp: Compres
     start = 0
     for pod, model, rank, r in zip(pods, models, ranks, rows):
         if r:
-            pre = preprocess(pod, comp, view, proj, np.asarray(model, np.float32), cfg.width,
-                             cfg.height, sh_degree=sh_degree, display_mode=display_mode)
+            pre = preprocess_fused(pod, comp, view, proj, np.asarray(model, np.float32),
+                                   cfg.width, cfg.height, sh_degree=sh_degree,
+                                   display_mode=display_mode)
             enumerate_entries_from_pre(pre, cfg_m, model_rank=int(rank),
                                        out=entries[start:start + r])
         start += r

@@ -1,6 +1,7 @@
 """Comparisons shared by the tests and `chip_smoke.py`: front-end entries
 against entries, sorted entries against sorted entries, per-splat
-preprocess outputs against preprocess outputs.
+preprocess outputs against preprocess outputs (within a tolerance, or bit
+for bit).
 
 Entry tolerance (front-end vs front-end, slot for slot). Two front-ends fed
 the same pod may round a transcendental (log, exp, rsqrt) an ulp apart, so:
@@ -129,3 +130,21 @@ def compare_preprocess(a, b, min_valid_equal: float = 0.999, rtol: float = 1e-6,
     _require(same_valid >= min_valid_equal, f"validity differs on too many splats: {stats}")
     _require(not worst, f"{worst}: {stats}")
     return stats
+
+
+def compare_preprocess_bits(a, b) -> dict:
+    """Check two PreprocessOut bit for bit on every splat, valid or not:
+    each of the 11 f32 fields as its bit pattern, and `valid`. Returns
+    {"splats", "valid"}; raises AssertionError naming the count of
+    differing splats of each field that differs."""
+    va, vb = (np.asarray(x.valid.detach().cpu()) for x in (a, b))
+    _require(va.shape == vb.shape, f"shapes differ: {va.shape} vs {vb.shape}")
+    differ = {"valid": int((va != vb).sum())}
+    for f in PRE_FIELDS:
+        x, y = (np.ascontiguousarray(getattr(p, f).detach().cpu().numpy()).view(np.uint32)
+                for p in (a, b))
+        _require(x.shape == y.shape, f"{f}: shapes differ: {x.shape} vs {y.shape}")
+        differ[f] = int((x != y).sum())
+    bad = {k: v for k, v in differ.items() if v}
+    _require(not bad, f"splats that differ, by field, of {va.size}: {bad}")
+    return {"splats": int(va.size), "valid": int(va.sum())}

@@ -4,12 +4,12 @@
 A frame is front-end -> entry sort K2 -> compositor K3 on a CUDA device,
 their plain versions on the CPU. The front-end has two routes, picked by the
 viewer's `fused` switch (the counterpart of the reference's `use_pallas`):
-fused, kernel K1 straight from the pod; or staged, the plain `preprocess`
-then the enumerate-and-pack kernel K5 (`render_frame` is that pipeline for
-one model). The editing state (mask, per-splat edits, the scene-wide
-selection edit and highlight) rides the front-end's gating inputs; only the
-gates a model's buffers hold are passed, so a scene never edited renders
-ungated.
+fused, kernel K1 straight from the pod; or staged, `preprocess_fused`
+(kernel K8) then the enumerate-and-pack kernel K5 (`render_frame` is that
+pipeline for one model). The editing state (mask, per-splat edits, the
+scene-wide selection edit and highlight) rides the front-end's gating
+inputs; only the gates a model's buffers hold are passed, so a scene never
+edited renders ungated.
 
 Models are ordered back-to-front by the camera distance of their centres.
 A frame with several visible models is one merged pass: every model's
@@ -34,8 +34,7 @@ from ..data.compression import Compressions
 from ..data.gaussian import Gaussians
 from ..ops.binning import TileConfig, build_sorted_entries, enumerate_entries_from_pre
 from ..ops.composite import composite_tiles_v2, over_background
-from ..ops.fused import enumerate_entries_fused
-from ..ops.preprocess import preprocess
+from ..ops.fused import enumerate_entries_fused, preprocess_fused
 from ..ops.sort import sort_entries
 from .buffers import GaussianBuffers
 
@@ -44,10 +43,12 @@ def render_frame(pod: dict, comp: Compressions, cfg: TileConfig, view, proj, mod
                  size: float = 1.0, sh_degree: int = 3, no_sh0: bool = False,
                  display_mode: int = 0, **gates) -> torch.Tensor:
     """One model through the staged pipeline -> (H, W, 4) premultiplied rgba:
-    `preprocess` (plain torch, on the pod's device) -> `build_sorted_entries`
-    (K5, K2) -> `composite_tiles_v2` (K3). `gates` as in `preprocess`."""
-    pre = preprocess(pod, comp, view, proj, model, cfg.width, cfg.height, sh_degree=sh_degree,
-                     no_sh0=no_sh0, size=size, display_mode=display_mode, **gates)
+    `preprocess_fused` (K8) -> `build_sorted_entries` (K5, K2) ->
+    `composite_tiles_v2` (K3); their plain versions on a CPU pod. `gates` as
+    in `preprocess`."""
+    pre = preprocess_fused(pod, comp, view, proj, model, cfg.width, cfg.height,
+                           sh_degree=sh_degree, no_sh0=no_sh0, size=size,
+                           display_mode=display_mode, **gates)
     flat = display_mode != int(GaussianDisplayMode.SPLAT)
     return composite_tiles_v2(build_sorted_entries(pre, cfg), cfg, flat_mode=flat)
 
@@ -83,7 +84,7 @@ class MultiModelViewer:
         max_dup: int = 4,
         background=(0.0, 0.0, 0.0),
         device="cuda",
-        # Front-end route: K1 from the pod (True) or the plain preprocess
+        # Front-end route: K1 from the pod (True) or the preprocess (K8)
         # then K5 (False). Sort and compositor are the same on both.
         fused: bool = True,
     ):
@@ -197,8 +198,8 @@ class MultiModelViewer:
         if self.fused:
             return enumerate_entries_fused(m.buffers.pod, self.comp, cfg, self._view, self._proj,
                                            m.transform.matrix(), model_rank=rank, out=out, **kw)
-        pre = preprocess(m.buffers.pod, self.comp, self._view, self._proj, m.transform.matrix(),
-                         cfg.width, cfg.height, **kw)
+        pre = preprocess_fused(m.buffers.pod, self.comp, self._view, self._proj,
+                               m.transform.matrix(), cfg.width, cfg.height, **kw)
         return enumerate_entries_from_pre(pre, cfg, model_rank=rank, out=out)
 
     def _composite(self, entries: torch.Tensor, cfg: TileConfig) -> torch.Tensor:
