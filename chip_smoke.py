@@ -75,22 +75,27 @@ Phases, each printing what it found:
      `StreamingLoader`), the three mask shapes and `(0 | 1) - 2` of
      bench.py sent as EvaluateMask through the command bus (bits held
      against a numpy evaluation on the host positions), 2 warm-up and 5
-     timed `update()` frames with the gizmos (gated K1, K2, K3 once a
-     frame; overlay time apart, peak memory, idle share and the top device
-     kernels under torch.profiler), the masked frame against a scene of the
-     kept splats alone (<= 1e-5), two hit queries making a measurement pair
-     (K4), a frame with its line, an export with the mask filter (the kept
-     count), Reset (the unmasked frame again), and a rect gesture with a
-     committed edit;
+     timed `update()` frames with the gizmos (gated K1, K2, K3 and the
+     overlay kernel K9 once a frame; overlay time apart, peak memory, idle
+     share and the top device kernels under torch.profiler), the masked
+     frame against a scene of the kept splats alone (<= 1e-5), two hit
+     queries making a measurement pair (K4), a frame with its line; K9 bit
+     for bit the plain overlays run on the card (the frame's 121 segments
+     through `render_overlays` in one launch, with the rect gesture's tint
+     and a brush ring, 600 random segments, one and none), timed three ways
+     with its plain version, bound and ptxas report; an export with the
+     mask filter (the kept count), Reset (the unmasked frame again), and a
+     rect gesture with a committed edit;
   9. phase 8's session served over HTTP: the port's `ViewerServer` on a
      `ThreadingHTTPServer` at 127.0.0.1 (an ephemeral port, a daemon
      thread) driven with urllib: the page and `/state`; the mask evaluated
      again over `/command`; 2 warm-up and 5 timed dirty frames (an orbit
      `/event`, then `/frame.jpg?quality=85`), each split into `update()`,
      the JPEG encoder's device stages, its copy to the host, its host stage
-     and the HTTP overhead; a dirty frame's launches (K1-K3 once) and an
-     idle poll's (none, the cached bytes); the served bytes against
-     `utils.jpeg` of an in-process `update()` and against the CPU encoding
+     and the HTTP overhead; a dirty frame's launches (K1-K3 once, and K9
+     once for the gizmos) and an idle poll's (none, the cached bytes); the
+     served bytes against `utils.jpeg` of an in-process `update()` and
+     against the CPU encoding
      of its uint8 copy; a `scale=0.5` frame's size; the first-person
      camera; a rect selection over `/event` (K4 once) and a committed
      edit; a masked export over `/export` (the kept count); and a change of
@@ -114,9 +119,10 @@ The line before the last two is the kernels' JSON record (each kernel's
 launches on its path, error against its plain version, times, least time
 the card could take for the same work, and a library call's time where one
 PyTorch call computes the same function; K3 and K6 with their tile-64,
-tile-128 and tile-320 numbers, and every kernel's launches in one config-4 frame, in
-its hit queries, in one served frame and in one sharded frame); the next is nvidia-smi's name and
-power limit; the last is {"ok": true, "device": {...}}. Any failure raises
+tile-128 and tile-320 numbers, K9 with its all-stages and random-segment
+numbers, and every kernel's launches in one config-4 frame, in its hit
+queries, in one served frame and in one sharded frame); the next is
+nvidia-smi's name and power limit; the last is {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero. Runs without a CUDA device, or outside the repo, fail
 before printing it.
 """
@@ -158,6 +164,10 @@ KERNELS = {
     # K8: the jitted preprocess (one XLA program on the TPU, no Pallas kernel).
     "preprocess": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/geometry.cu",
                    "wgpu_3dgs_viewer_app_tpu/ops/preprocess.py:107"),
+    # K9: the app frame's overlays (jitted image programs, no Pallas kernel).
+    "overlay": ("wgpu_3dgs_viewer_app_tpu_torch/csrc/overlay.cu",
+                "wgpu_3dgs_viewer_app_tpu/core/lines.py:29; "
+                "wgpu_3dgs_viewer_app_tpu/query/overlay.py:16; :24"),
 }
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes and f32 (non-tensor-core)
@@ -181,6 +191,13 @@ K5_OPS_SPLAT = 60
 K6_OPS_BLEND, K3_MXU_OPS_BLEND = 26, 24
 # K3 and K6 end where their plain versions end: they differ by rounding.
 K67_TOL = 1e-4
+# K9 per (pixel, segment) pair inside the segment's box (box test, the
+# projection's f32 and f64 steps, root, cover, 3 blends) and per pixel for
+# the tint and the ring.
+K9_OPS_PAIR, K9_OPS_TINT, K9_OPS_RING = 30, 6, 16
+# Random segments K9 is held at besides the frame's own: at most 256 px
+# long, widths 0-8.
+K9_RANDOM_SEGMENTS = 600
 
 CONFIG2_SIZE = (1920, 1088)
 CONFIG2_PLACEMENTS = ((-2.0, 0.0), (0.0, 40.0), (2.0, -40.0))  # x offset, y rotation (deg)
@@ -370,13 +387,13 @@ def ptxas_rows(part: str, usage: dict = None) -> dict:
     return rows
 
 
-def log_ptxas(what: str, rows: dict) -> None:
+def log_ptxas(what: str, rows: dict, phase: int = 2) -> None:
     for label, u in rows.items():
-        log(f"phase 2 {what} {label}: {u['registers']} registers, {u.get('stack', 0)} B stack "
-            f"frame, {u.get('spill_stores', 0)} B spill stores, {u.get('spill_loads', 0)} B spill "
-            f"loads (ptxas)")
+        log(f"phase {phase} {what} {label}: {u['registers']} registers, {u.get('stack', 0)} B "
+            f"stack frame, {u.get('spill_stores', 0)} B spill stores, {u.get('spill_loads', 0)} B "
+            f"spill loads (ptxas)")
     if not rows:
-        log(f"phase 2 {what}: no ptxas report (the library was built by another process)")
+        log(f"phase {phase} {what}: no ptxas report (the library was built by another process)")
 
 
 def k2_kernel_report(sort, e: int, n_live: int, n_tiles: int) -> dict:
@@ -1146,7 +1163,8 @@ def phase_compositors(g1, cam1, v2_img, device, smi: str, rec: dict) -> dict:
     ms, img, peak, launches = timed_frames(v1_frame(pod, comp, cfg, cam1))
     for name in ("sort", "composite_v1"):
         require(launches[name] >= 1, f"kernel {name} never launched on the v1 path: {launches}")
-    require(launches["composite"] == 0 and launches["fused"] == 0, f"v1 path: {launches}")
+    require(launches["composite"] == 0 and launches["fused"] == 0 and launches["overlay"] == 0,
+            f"v1 path: {launches}")
     require(launches["preprocess"] == 7, f"v1 path, 7 frames: K8 {launches['preprocess']} times")
     coverage = check_frame(img, "v1 config 1")
     d = (img - v2_img).abs()
@@ -1396,6 +1414,7 @@ def phase_config3(g, cam, device, smi: str, rec: dict) -> dict:
     for name in ("geometry", "fused", "sort", "composite"):
         require(launches[name] >= 1, f"kernel {name} never launched on the config-3 path: "
                                      f"{launches}")
+    require(launches["overlay"] == 0, f"the config-3 step drew overlays: {launches}")
     coverage = check_frame(img, "config 3")
     selected = int(bits.sum())
     require(0 < selected < g.count, f"{selected} splats selected")
@@ -1825,12 +1844,171 @@ def profile_frames(step, frames: int = 3) -> tuple:
     return walls[-1], busy, sorted(rows, key=lambda r: -r[1])
 
 
-def phase_config4(g, device, smi: str) -> tuple:
+def bits_equal(a, b) -> bool:
+    """Two f32 tensors equal bit for bit."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def random_segments(m: int, w: int, h: int, seed: int) -> tuple:
+    """m segments at most 256 px long over a w x h frame, widths 0-8, among
+    them a dead, a transparent, an off-screen, a NaN-ended, an inf-ended and
+    a zero-length one, as `rasterize_lines` takes them (numpy)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = (rng.random((m, 2)) * [w * 1.2, h * 1.2] - [w * 0.1, h * 0.1]).astype(np.float32)
+    ang, length = rng.random(m) * 2 * np.pi, rng.random(m) * 256.0
+    b = (a + np.stack([np.cos(ang), np.sin(ang)], 1) * length[:, None]).astype(np.float32)
+    col = rng.random((m, 4)).astype(np.float32)
+    col[::5, 3] = 1.0
+    lw = (rng.random(m) * 8.0).astype(np.float32)
+    live = np.ones(m, bool)
+    live[0], col[1, 3] = False, 0.0
+    a[2], b[2] = (-300.0, -300.0), (-280.0, -290.0)
+    a[3, 0], b[4, 1] = np.nan, np.inf
+    b[5], lw[6] = a[5], 0.0
+    return a, b, col, lw, live
+
+
+def k9_bound(img, table, texture=None, ring: bool = False) -> tuple:
+    """K9's bound: the image read and written once, the segment table and
+    the texture read once; operations per (pixel, segment) pair inside the
+    segments' boxes and per pixel for the tint and the ring."""
+    from wgpu_3dgs_viewer_app_tpu_torch.core.lines import box_sizes
+
+    px = img.shape[0] * img.shape[1]
+    ops = int(box_sizes(table).sum()) * K9_OPS_PAIR + px * (
+        (K9_OPS_TINT if texture is not None else 0) + (K9_OPS_RING if ring else 0))
+    return bound(2 * nbytes(img) + table.nbytes + nbytes(texture), ops)
+
+
+def overlay_checks(s, img, smi: str) -> dict:
+    """Phase 8, continued: K9 against the plain overlays run on the card,
+    bit for bit, on the session's frame `img` at config 4: the frame's own
+    segments (the gizmos of the three shapes and the measurement line)
+    through `render_overlays`; the same with the rect gesture's texture tint
+    (texture mode) and a brush ring; K9_RANDOM_SEGMENTS random segments; one
+    segment and none. K9 timed three ways (`wrapper_times`) with its plain
+    version, bound and ptxas report. Returns K9's record."""
+    import numpy as np
+
+    from wgpu_3dgs_viewer_app_tpu_torch.app import Action, SelectionMethod
+    from wgpu_3dgs_viewer_app_tpu_torch.app.measurement import measurement_lines
+    from wgpu_3dgs_viewer_app_tpu_torch.core.lines import rasterize_lines_plain, segment_table
+    from wgpu_3dgs_viewer_app_tpu_torch.mask.gizmo import gizmo_lines
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import kernels, overlay_cuda
+    from wgpu_3dgs_viewer_app_tpu_torch.query import QuerySelectionOp, QueryToolset
+    from wgpu_3dgs_viewer_app_tpu_torch.query.overlay import (overlay_cursor_ring_plain,
+                                                              overlay_texture_plain)
+
+    h, w = img.shape[:2]
+    view, proj = s.viewer._view, s.viewer._proj
+
+    def host_segments():
+        """What `render_overlays` does on the host before K9: the gizmos'
+        and the measurement's segments, projected, and their table."""
+        parts = (gizmo_lines(s.mask.shapes, view, proj, w, h),
+                 measurement_lines(s.measurement, view, proj, w, h))
+        lines = tuple(np.concatenate(f) for f in zip(*parts))
+        return lines, segment_table(*lines, w, h)
+
+    lines, table = host_segments()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        host_segments()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 20
+    require(len(table) == len(lines[0]) == 121, f"config 4 keeps {len(table)} of "
+                                                 f"{len(lines[0])} overlay segments, not 121")
+
+    def one_launch(draw):
+        kernels.reset_launch_counts()
+        out = draw()
+        got = dict(kernels.LAUNCHES)
+        require(got == {**dict.fromkeys(got, 0), "overlay": 1}, f"overlays launched {got}")
+        return out
+
+    # 1. The frame's own overlays, as update() draws them.
+    got = one_launch(lambda: s.render_overlays(img))
+    want = rasterize_lines_plain(img, *lines)
+    require(bits_equal(got, want), "K9 != the plain lines on the config-4 frame")
+    drawn = int(((got - img).abs().amax(dim=-1) > 0).sum())
+    t = wrapper_times(lambda: overlay_cuda(img, table), "overlay_kernel")
+    b_ms, b_by = k9_bound(img, table)
+    rec = {"max_abs_err": float((got - want).abs().max()), **t,
+           "plain_ms": cuda_ms(lambda: rasterize_lines_plain(img, *lines), 5), "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None, "segments": len(table), "pixels_drawn": drawn,
+           "host_segments_ms": host_ms}
+    log(f"phase 8 K9 overlays, config-4 frame ({w}x{h}, {len(table)} segments: gizmos + the "
+        f"measurement line, {drawn} pixels drawn): one launch through render_overlays, bit for "
+        f"bit the plain lines; kernel {t['ms']:.4f} ms by events around the wrapper "
+        f"({fmt_ms(t['device_ms'])} device only, {t['host_ms']:.4f} host to issue), plain "
+        f"{rec['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}); the host's segment build "
+        f"before it (gizmo_lines, measurement_lines, segment_table) {host_ms:.3f} ms [{smi}]")
+
+    # 2. With the rect gesture's tint (texture mode) and the brush ring at
+    # its end, through the session; the gesture is then dropped.
+    method = s.selection.method
+    s.action, s.selection.method = Action.SELECTION, SelectionMethod.BRUSH
+    s.toolset.set_use_texture(True)
+    s.toolset.start(QueryToolset.RECT, QuerySelectionOp.SET, CONFIG3_RECT[0])
+    s.toolset.update_pos(CONFIG3_RECT[1])
+    tex, center = s.toolset.texture, np.asarray(s.toolset._last_pos, np.float32)
+    radius = float(s.selection.brush_radius)
+    got = one_launch(lambda: s.render_overlays(img))
+
+    def plain_all():
+        out = overlay_texture_plain(rasterize_lines_plain(img, *lines), tex)
+        return overlay_cursor_ring_plain(out, center, radius)
+
+    require(bits_equal(got, plain_all()), "K9 != the plain lines, tint and ring at config 4")
+    t_all = wrapper_times(lambda: overlay_cuda(img, table, tex, cursor=(center, radius)),
+                          "overlay_kernel")
+    b_all, _ = k9_bound(img, table, tex, True)
+    rec.update({f"all_stages_{k}": v for k, v in t_all.items()})
+    rec.update(all_stages_plain_ms=cuda_ms(plain_all, 5), all_stages_bound_ms=b_all)
+    s.toolset.end()
+    s.toolset.set_use_texture(False)
+    s.action, s.selection.method = Action.NONE, method
+    log(f"phase 8 K9 + the rect gesture's tint ({int(tex.sum())} px) and a brush ring (r "
+        f"{radius:.0f} at {center.tolist()}): one launch, bit for bit the plain passes in turn; "
+        f"kernel {t_all['ms']:.4f} ms ({fmt_ms(t_all['device_ms'])} device only), plain "
+        f"{rec['all_stages_plain_ms']:.3f} ms, bound {b_all:.4f} ms")
+
+    # 3. Random segments over the frame; 4. one segment, and none.
+    segs = random_segments(K9_RANDOM_SEGMENTS, w, h, seed=12)
+    tab = segment_table(*segs, w, h)
+    require(bits_equal(overlay_cuda(img, tab), rasterize_lines_plain(img, *segs)),
+            f"K9 != the plain lines on {K9_RANDOM_SEGMENTS} random segments")
+    t_rand = wrapper_times(lambda: overlay_cuda(img, tab), "overlay_kernel")
+    rec.update({f"random_{k}": v for k, v in t_rand.items()})
+    rec.update(random_segments=len(tab), random_bound_ms=k9_bound(img, tab)[0],
+               random_plain_ms=cuda_ms(lambda: rasterize_lines_plain(img, *segs), 3))
+    one = tuple(f[7:8] for f in lines)
+    require(len(segment_table(*one, w, h)) == 1, "segment 7 of the frame's is not kept")
+    require(bits_equal(overlay_cuda(img, segment_table(*one, w, h)),
+                       rasterize_lines_plain(img, *one)), "K9 != the plain line on one segment")
+    none = overlay_cuda(img, table[:0])
+    require(bits_equal(none, img) and none.data_ptr() != img.data_ptr(),
+            "K9 with no segment is not a copy of the frame")
+    log(f"phase 8 K9 on {K9_RANDOM_SEGMENTS} random segments ({len(tab)} kept; dead, "
+        f"transparent, off-screen, NaN, inf and zero-length among them, widths 0-8, <= 256 px "
+        f"long): bit for bit the plain lines, kernel {t_rand['ms']:.4f} ms "
+        f"({fmt_ms(t_rand['device_ms'])} device only), plain {rec['random_plain_ms']:.3f} ms; "
+        f"one segment and none bit for bit")
+    rec["ptxas"] = ptxas_rows("overlay_kernel")
+    log_ptxas("K9", rec["ptxas"], phase=8)
+    return rec
+
+
+def phase_config4(g, device, smi: str, rec: dict) -> tuple:
     """Phase 8: BASELINE config 4 through the app session: the scene
     streamed in from a PLY, three mask shapes and `(0 | 1) - 2` sent as
     EvaluateMask, timed `update()` frames with the gizmos, then the
-    session's other steps once each. Returns the launch counts of one frame
-    and of the hit queries."""
+    session's other steps once each, and K9 against the plain overlays
+    (`overlay_checks`). Returns the launch counts of the 7 frames, of one
+    frame and of the hit queries."""
     import io
 
     import numpy as np
@@ -1919,8 +2097,9 @@ def phase_config4(g, device, smi: str) -> tuple:
 
     # Timed frames with the gizmos.
     ms, img, peak, launches = timed_frames(s.update)
-    want = {**dict.fromkeys(launches, 0), "fused": 7, "sort": 7, "composite": 7}
+    want = {**dict.fromkeys(launches, 0), "fused": 7, "sort": 7, "composite": 7, "overlay": 7}
     require(launches == want, f"config-4 session, 7 frames: launched {launches}, expected {want}")
+    frames_launches = launches
     # The kept splats fill a box of 1.5 and a ball around the origin, seen
     # from 6 units: a few percent of the frame.
     coverage = check_frame(img, "config 4", min_coverage=0.01, size=(w, h))
@@ -1969,6 +2148,8 @@ def phase_config4(g, device, smi: str) -> tuple:
         f"{[h.pos.round(4).tolist() for h in pair.hits]}, distance {dist:.4f}, launches "
         f"{hit_launches}; the measurement line changed {drawn} pixels; overlay (gizmos of 3 "
         f"shapes, 120 segments, + 1 measurement line) {overlay_ms:.3f} ms")
+    rec["overlay"] = overlay_checks(s, masked, smi)
+    rec["overlay"]["config4_render_overlays_ms"] = overlay_ms
 
     # Export with the mask filter: the PLY holds the kept splats.
     out = _HeadWriter()
@@ -2009,7 +2190,7 @@ def phase_config4(g, device, smi: str) -> tuple:
     log(f"phase 8 checks: export with the mask filter {header.count} splats, {out.size} bytes in "
         f"{export_s:.2f} s; Reset frame == unmasked frame (max abs {d_reset}); rect gesture "
         f"{CONFIG3_RECT} selected {selected} splats (K4 once), edit committed to them")
-    return frame_launches, hit_launches, s, kept
+    return frames_launches, frame_launches, hit_launches, s, kept
 
 
 def _sof_size(blob: bytes) -> tuple:
@@ -2089,12 +2270,14 @@ def phase_serve(s, kept: int, smi: str) -> dict:
                          "event": (t1 - t0) * 1e3, "total": (t2 - t0) * 1e3, "bytes": len(blob)})
         mean = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]}
 
-        # 3. Launch counts: a dirty frame runs K1-K3 once, an idle poll nothing.
+        # 3. Launch counts: a dirty frame runs K1-K3 and K9 (the gizmos) once,
+        # an idle poll nothing.
         call("/event", orbit)
         kernels.reset_launch_counts()
         blob = call("/frame.jpg?quality=85")
         frame_launches = dict(kernels.LAUNCHES)
-        want = {**dict.fromkeys(frame_launches, 0), "fused": 1, "sort": 1, "composite": 1}
+        want = {**dict.fromkeys(frame_launches, 0), "fused": 1, "sort": 1, "composite": 1,
+                "overlay": 1}
         require(frame_launches == want, f"a dirty frame launched {frame_launches}")
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2380,7 +2563,8 @@ def main() -> int:
     launches["composite_v1"] = launches7["composite_v1"]["composite_v1"]
     del v2_img
     torch.cuda.empty_cache()
-    launches8, hits8, session4, kept4 = phase_config4(g1, device, smi)
+    frames8, launches8, hits8, session4, kept4 = phase_config4(g1, device, smi, rec)
+    launches["overlay"] = frames8["overlay"]
     launches9 = phase_serve(session4, kept4, smi)
     del session4
     torch.cuda.empty_cache()
@@ -2393,8 +2577,8 @@ def main() -> int:
         require(launches[name] >= 1, f"kernel {name} never launched on its path: {launches}")
         # `launches`: on the path that is the kernel's main one (config 1 for
         # K1-K3, config 3 for K4, the staged config 2 for K5 and K8, phase
-        # 7's v1 frame for K6); config 4: one session frame, and the two hit
-        # queries.
+        # 7's v1 frame for K6, config 4's 7 session frames for K9); config 4:
+        # one session frame, and the two hit queries.
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": launches[name],
                     "launches_config2_fused": launches2["fused"][name],

@@ -32,6 +32,14 @@ libraries are built and loaded in one process. `--parts` picks what runs
   is printed.
 - frame: the config-1 frame through each tree's `Viewer.render`, 5 frames
   after 2 warm-ups by the host clock, in turns.
+- session: BASELINE config 4 through each tree's `GaussianSplattingSession`
+  (the config-1 scene added to the viewer directly, the three mask shapes
+  and `(0 | 1) - 2` evaluated, a measurement pair from two hit queries):
+  `update()` (5 frames after 2 warm-ups, host clock), `Viewer.render` alone
+  and `render_overlays` alone (CUDA events), and a served dirty frame
+  (`ViewerServer.frame_jpeg(85)` after an orbit event, no HTTP: 5 after 2
+  warm-ups, with its update/device/copy/host split), each in turns. The two
+  trees' `update()` frames and JPEG bytes must be equal bit for bit.
 Prints one line per comparison, the card's name and power limit, and a JSON
 record as the last line. Needs a CUDA device.
 """
@@ -45,6 +53,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -329,6 +338,76 @@ def frame(old) -> dict:
     return rec
 
 
+def session(old) -> dict:
+    """Config 4 through each tree's app session, in turns (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from wgpu_3dgs_viewer_app_tpu_torch import app
+
+    g, _ = chip_smoke.config1_scene()
+    w, h = chip_smoke.CONFIG4_SIZE
+    apps = {"other": importlib.import_module("other_port.app"), "this": app}
+    masks = {"other": importlib.import_module("other_port.mask"),
+             "this": importlib.import_module("wgpu_3dgs_viewer_app_tpu_torch.mask")}
+    sessions, servers, frames = {}, {}, {}
+    for side, a in apps.items():
+        s = a.GaussianSplattingSession(width=w, height=h, device="cuda", tile=32, max_dup=4)
+        s.camera.control.target = np.zeros(3, np.float32)
+        s.camera.control.pos = np.array([0.0, 0.0, -6.0], np.float32)
+        s.viewer.add_model("config4.ply", g)
+        s.selected_key = "config4.ply"
+        mk = masks[side]
+        for kind, pos, scale in chip_smoke.CONFIG4_SHAPES:
+            s.mask.add_shape(mk.MaskShape(kind=mk.MaskShapeKind(kind),
+                                          pos=np.array(pos, np.float32),
+                                          scale=np.full(3, scale, np.float32)))
+        s.mask.op_code = chip_smoke.CONFIG4_OP
+        s.evaluate_mask(s.mask.parse_op())
+        assert all(s.locate_hit(px, 0, i) for i, px in enumerate(chip_smoke.CONFIG4_HITS))
+        sessions[side], servers[side] = s, a.ViewerServer(s)
+        frames[side] = s.viewer.render(s.camera.control)
+    rec = {k: {"other": [], "this": []} for k in ("update_ms", "render_ms", "overlay_ms",
+                                                  "served_ms")}
+    rec["served_split_ms"] = {"other": [], "this": []}
+    orbit = {"type": "orbit", "dx": 10.0, "dy": 0.0}
+    for side in ("other", "this", "this", "other"):
+        s, vs = sessions[side], servers[side]
+        rec["update_ms"][side].append(chip_smoke.timed_frames(s.update)[0])
+        rec["render_ms"][side].append(chip_smoke.cuda_ms(
+            lambda: s.viewer.render(s.camera.control), 5))
+        rec["overlay_ms"][side].append(chip_smoke.cuda_ms(
+            lambda: s.render_overlays(frames[side]), 10))
+        rows = []
+        for i in range(7):
+            vs.handle_event(orbit)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vs.frame_jpeg(85)
+            if i >= 2:
+                rows.append(((time.perf_counter() - t0) * 1e3, dict(vs.frame_ms)))
+        rec["served_ms"][side].append(sum(r[0] for r in rows) / len(rows))
+        rec["served_split_ms"][side].append(
+            {k: sum(r[1][k] for r in rows) / len(rows) for k in rows[0][1]})
+    imgs = {side: s.update() for side, s in sessions.items()}
+    blobs = {side: servers[side].frame_jpeg(85) for side in sessions}
+    rec["update_bit_for_bit"] = bit_equal(imgs["other"], imgs["this"])
+    rec["served_bytes_equal"] = blobs["other"] == blobs["this"]
+    if not (rec["update_bit_for_bit"] and rec["served_bytes_equal"]):
+        raise AssertionError(f"config 4: the trees' frames differ: update() bit for bit "
+                             f"{rec['update_bit_for_bit']}, served bytes equal "
+                             f"{rec['served_bytes_equal']}")
+    for k in ("update_ms", "render_ms", "overlay_ms", "served_ms"):
+        print(f"config4 {k} (other, this, this, other): other {rec[k]['other']}, this "
+              f"{rec[k]['this']}", flush=True)
+    print(f"config4 served split: other {rec['served_split_ms']['other']}, this "
+          f"{rec['served_split_ms']['this']}; update() frames bit for bit, served JPEG bytes "
+          f"equal", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -337,10 +416,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="root of the other checkout")
     ap.add_argument("--parts", default="frontend,compositors,frame",
-                    help="comma-separated: frontend, compositors, frame")
+                    help="comma-separated: frontend, compositors, frame, session")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
-    if not parts <= {"frontend", "compositors", "frame"}:
+    if not parts <= {"frontend", "compositors", "frame", "session"}:
         ap.error(f"unknown parts in {args.parts}")
     if not torch.cuda.is_available():
         print("ab_port_kernels: no CUDA device", file=sys.stderr)
@@ -360,6 +439,8 @@ def main() -> int:
         rec.update(compositors(old, ops, smi))
     if "frame" in parts:
         rec["config1_frame"] = frame(old)
+    if "session" in parts:
+        rec["config4_session"] = session(old)
     print(smi)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "smi": smi, **rec}))
     return 0

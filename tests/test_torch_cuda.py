@@ -12,8 +12,10 @@ key layout) and compositor K6; K3 and K6 at tiles over 32 px (one block up
 to 64, a thread block cluster up to 256, 32-px parts in two launches
 above, also on a tile larger than the image); the app session's masked
 frame; the JPEG encoder's bytes on the card against the CPU's, the web
-viewer's `frame_jpeg` over a session on the card, and the sharded renderer
-over NCCL at world size 1 against the single-device frame.
+viewer's `frame_jpeg` over a session on the card, the sharded renderer
+over NCCL at world size 1 against the single-device frame, and the
+overlay kernel K9 bit for bit its plain versions (segments, tint, ring, in
+every combination) and in the session's frame.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -32,23 +34,31 @@ import pytest
 import torch
 
 from test_golden import assert_golden_close
-from wgpu_3dgs_viewer_app_tpu_torch.app import (GaussianSplattingSession, SceneCommand,
-                                                SceneCommandKind, ViewerServer)
+from wgpu_3dgs_viewer_app_tpu_torch.app import (Action, GaussianSplattingSession,
+                                                MeasurementHitPair, SceneCommand,
+                                                SceneCommandKind, SelectionMethod, ViewerServer)
 from wgpu_3dgs_viewer_app_tpu_torch.core import CameraOrbitControl
 from wgpu_3dgs_viewer_app_tpu_torch.core import edit as tedit
+from wgpu_3dgs_viewer_app_tpu_torch.core.lines import (rasterize_lines, rasterize_lines_plain,
+                                                       segment_table)
 from wgpu_3dgs_viewer_app_tpu_torch.data import (
     ALL_COMPRESSIONS, flat_pod_to_words, make_random_scene, pack_gaussians, pod_to_tensors,
     read_ply, write_ply)
+from wgpu_3dgs_viewer_app_tpu_torch.app.measurement import measurement_lines
 from wgpu_3dgs_viewer_app_tpu_torch.mask import MaskShape, MaskShapeKind
+from wgpu_3dgs_viewer_app_tpu_torch.mask.gizmo import gizmo_lines
 from wgpu_3dgs_viewer_app_tpu_torch.core import ModelTransform
 from wgpu_3dgs_viewer_app_tpu_torch.ops import (
     SENTINEL, PreprocessOut, TileConfig, build_entry_planes, build_sorted_entries,
     build_sorted_entries_fused, build_tile_lists, composite_tiles, composite_tiles_plain,
     composite_tiles_plain_v2, composite_tiles_v2, enumerate_entries_from_pre,
     enumerate_entries_from_pre_plain, enumerate_entries_fused, enumerate_entries_plain, kernels,
-    over_background, preprocess, preprocess_fused, preprocess_geometry_fused,
+    over_background, overlay_cuda, preprocess, preprocess_fused, preprocess_geometry_fused,
     preprocess_geometry_plain, sort_entries, sort_entries_plain)
 from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import tile_list_entries
+from wgpu_3dgs_viewer_app_tpu_torch.query import QuerySelectionOp, QueryToolset
+from wgpu_3dgs_viewer_app_tpu_torch.query.overlay import (overlay_cursor_ring_plain,
+                                                          overlay_texture_plain)
 from wgpu_3dgs_viewer_app_tpu_torch.testing import (compare_entries, compare_preprocess,
                                                     compare_preprocess_bits, compare_sorted)
 from wgpu_3dgs_viewer_app_tpu_torch.utils import jpeg
@@ -454,7 +464,7 @@ def _u8(img):
 def test_session_masked_frame_on_card_matches_cpu(dev):
     """The app session on the golden scene (streamed in from PLY bytes):
     three mask shapes and `(0 | 1) - 2` sent as EvaluateMask, one `update()`
-    frame with the gizmos on the card (gated K1, K2, K3 once each) against
+    frame with the gizmos on the card (gated K1, K2, K3 and K9 once each) against
     the same session on the CPU, the mask bits equal (every containment
     step is one rounded f32 operation on both devices), and a hit query on
     the card (K4) against the CPU one."""
@@ -489,7 +499,7 @@ def test_session_masked_frame_on_card_matches_cpu(dev):
         out.append((img, s.viewer.models["golden.ply"].buffers.download_mask(),
                     s.measurement.hit_pairs[0].hits[0].pos, launches, hit_launches))
     (img_k, bits_k, hit_k, launches, hit_launches), (img_c, bits_c, hit_c, _, _) = out
-    assert launches == _only(fused=1, sort=1, composite=1)
+    assert launches == _only(fused=1, sort=1, composite=1, overlay=1)
     assert hit_launches == _only(geometry=1)
     assert np.array_equal(bits_k, bits_c) and 0.05 < bits_k.mean() < 0.95
     assert_golden_close(_u8(img_k), _u8(img_c))
@@ -794,3 +804,134 @@ def test_sharded_frame_on_card_matches_render_frame(dev):
         assert torch.equal(img[:200], over_background(want, (0.0, 0.0, 0.0)))
     finally:
         dist.destroy_process_group()
+
+
+OVERLAY_STAGES = ["lines", "lines+tint", "lines+tint+ring", "ring"]
+
+
+def _overlay_inputs(h: int, w: int, m: int, seed: int = 0):
+    """A random frame, m segments at most 256 px long with widths 0-8 (one
+    alone starts inside the frame; among 8 or more, a dead, a transparent,
+    an off-screen, a NaN-ended, an inf-ended and a zero-length one), a
+    selection texture, a ring."""
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.random((h, w, 3)).astype(np.float32))
+    a = (rng.random((m, 2)) * [w * 1.2, h * 1.2] - [w * 0.1, h * 0.1]).astype(np.float32)
+    ang, length = rng.random(m) * 2 * np.pi, rng.random(m) * 256.0
+    b = (a + np.stack([np.cos(ang), np.sin(ang)], 1) * length[:, None]).astype(np.float32)
+    col = rng.random((m, 4)).astype(np.float32)
+    col[::5, 3] = 1.0
+    lw = (rng.random(m) * 8.0).astype(np.float32)
+    live = np.ones(m, bool)
+    if m == 1:
+        a[0] = (w * 0.3, h * 0.4)
+    if m >= 8:
+        live[0] = False
+        col[1, 3] = 0.0
+        a[2], b[2] = (-300.0, -300.0), (-280.0, -290.0)
+        a[3, 0], b[4, 1] = np.nan, np.inf
+        b[5] = a[5]
+        lw[6] = 0.0
+    tex = torch.from_numpy(rng.random((h, w)) < 0.3)
+    center = np.array([w * 0.45 + 0.3, h * 0.55 - 0.2], np.float32)
+    return img, (a, b, col, lw, live), tex, center, float(min(h, w)) * 0.2
+
+
+@pytest.mark.parametrize("m", [0, 1, 121, 600])
+@pytest.mark.parametrize("stages", OVERLAY_STAGES)
+@pytest.mark.parametrize("h,w", [(96, 128), (1088, 1920)])
+def test_overlay_kernel_matches_plain(dev, h, w, stages, m):
+    """K9 in one launch against the plain versions run in turn on the card,
+    bit for bit (max abs 0)."""
+    img, segs, tex, center, radius = _overlay_inputs(h, w, m)
+    img, tex = img.to(dev), tex.to(dev)
+    want, table, texture, cursor = img, None, None, None
+    if "lines" in stages:
+        want = rasterize_lines_plain(want, *segs)
+        table = segment_table(*segs, w, h)
+    if "tint" in stages:
+        want, texture = overlay_texture_plain(want, tex), tex
+    if "ring" in stages:
+        want = overlay_cursor_ring_plain(want, center, radius)
+        cursor = (center, radius)
+    kernels.reset_launch_counts()
+    got = overlay_cuda(img, table, texture, cursor=cursor)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == _only(overlay=1)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if stages == "lines":
+        assert torch.equal(rasterize_lines(img, *segs), got)
+    if m and "lines" in stages:
+        assert not torch.equal(got, img)
+
+
+def test_overlay_wrapper_rejects_bad_inputs(dev):
+    img, segs, tex, center, radius = _overlay_inputs(32, 48, 10)
+    img, tex = img.to(dev), tex.to(dev)
+    table = segment_table(*segs, 48, 32)
+    for bad in (img.double(), img.cpu(), img.transpose(0, 1).contiguous().transpose(0, 1),
+                img[..., :2].contiguous()):
+        with pytest.raises(ValueError, match="img"):
+            overlay_cuda(bad, table)
+    for bad in (tex.to(torch.uint8), tex.cpu(), tex[:16].contiguous()):
+        with pytest.raises(ValueError, match="texture"):
+            overlay_cuda(img, table, bad)
+    for bad in (table.astype(np.float64), table[:, :12].copy(), torch.from_numpy(table)):
+        with pytest.raises(ValueError, match="table"):
+            overlay_cuda(img, bad)
+    kernels.reset_launch_counts()
+    overlay_cuda(img, table[:0], cursor=(center, radius))
+    assert kernels.LAUNCHES == _only(overlay=1)
+
+
+def test_session_overlays_on_card_match_cpu(dev):
+    """The session's overlays (gizmos of two shapes, a measurement pair, a
+    brush gesture in texture mode: the tint and the ring) as one K9 launch,
+    bit for bit the plain versions on the card and within 1e-5 of the CPU
+    session (torch's CPU sqrt in f32, in the ring, is an ulp off now and
+    then); then `update()` with a model: K1, K2, K3 and K9 once each."""
+    g = make_random_scene(3000, seed=4, extent=1.0, scale_range=(0.01, 0.04))
+    buf = io.BytesIO()
+    write_ply(buf, g)
+    img = torch.from_numpy(np.random.default_rng(1).random((120, 160, 3)).astype(np.float32))
+    out = {}
+    for device in ("cpu", dev):
+        s = GaussianSplattingSession(width=160, height=120, device=device)
+        s.camera.control.pos = np.array([0.4, 0.3, -3.0], np.float32)
+        s.viewer.update_camera(s.camera.control)
+        s.mask.add_shape(MaskShape(kind=MaskShapeKind.BOX, scale=np.full(3, 1.4, np.float32)))
+        s.mask.add_shape(MaskShape(kind=MaskShapeKind.ELLIPSOID,
+                                   pos=np.array([0.4, 0.0, 0.0], np.float32)))
+        pair = MeasurementHitPair(label="p", line_width=2.5)
+        pair.hits[0].pos = np.array([-0.6, 0.1, 0.0], np.float32)
+        pair.hits[1].pos = np.array([0.5, -0.2, 0.3], np.float32)
+        s.measurement.hit_pairs.append(pair)
+        s.action = Action.SELECTION
+        s.selection.method = SelectionMethod.BRUSH
+        s.selection.brush_radius = 14
+        s.toolset.update_brush_radius(14.0)
+        s.toolset.set_use_texture(True)
+        s.toolset.start(QueryToolset.BRUSH, QuerySelectionOp.ADD, (30.0, 40.0))
+        s.toolset.update_pos((110.0, 70.0))
+        kernels.reset_launch_counts()
+        out[str(device)] = s.render_overlays(img.to(device)).cpu()
+        launches = dict(kernels.LAUNCHES)
+    assert launches == _only(overlay=1)
+    view, proj = s.viewer._view, s.viewer._proj
+    lines = [np.concatenate(f) for f in zip(*(x for x in (
+        gizmo_lines(s.mask.shapes, view, proj, 160, 120),
+        measurement_lines(s.measurement, view, proj, 160, 120))))]
+    want = rasterize_lines_plain(img.to(dev), *lines)
+    want = overlay_texture_plain(want, s.toolset.texture)
+    want = overlay_cursor_ring_plain(want, np.float32([110.0, 70.0]), 14.0).cpu()
+    got, cpu = out[str(dev)], out["cpu"]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert float((got - cpu).abs().max()) <= 1e-5 and not torch.equal(got, img)
+    s.open_model("m.ply", io.BytesIO(buf.getvalue()))
+    while s.loader is not None:
+        s._drain_loader()
+    kernels.reset_launch_counts()
+    frame = s.update()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == _only(fused=1, sort=1, composite=1, overlay=1)
+    assert frame.shape == (120, 160, 3) and bool(torch.isfinite(frame).all())

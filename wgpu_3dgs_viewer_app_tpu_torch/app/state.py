@@ -11,8 +11,9 @@ texture and the brush cursor.
 Where the JAX session picks its kernels with `use_pallas`, this one takes a
 `device`: on a CUDA device every frame runs the front-end K1 (gated by the
 mask bits and the edits once they exist), the entry sort K2 and the
-compositor K3, and the selection and hit queries run the query-geometry
-kernel K4; on the CPU (only when asked for) their plain versions run. The
+compositor K3, then the overlays as one launch of K9, and the selection
+and hit queries run the query-geometry kernel K4; on the CPU (only when
+asked for) their plain versions run. The
 mask is evaluated on the device too: the model's host positions are
 uploaded for each evaluation.
 """
@@ -31,7 +32,6 @@ import torch
 from ..core.camera import Camera, CameraOrbitControl
 from ..core.edit import (EDIT_FLAG_ENABLED, EDIT_FLAG_HIDDEN, EDIT_FLAG_OVERRIDE_COLOR,
                          GaussianEditPod, SelectionHighlightPod)
-from ..core.lines import rasterize_lines
 from ..core.transform import GaussianTransform
 from ..data.compression import Compressions
 from ..data.gaussian import Gaussians
@@ -40,8 +40,8 @@ from ..mask.expr import MaskOp, parse
 from ..mask.gizmo import gizmo_lines
 from ..mask.shapes import MaskShape
 from ..ops.fused import preprocess_geometry_fused
+from ..ops.overlay import draw_overlays
 from ..query.hit import query_hit
-from ..query.overlay import overlay_cursor_ring, overlay_texture
 from ..query.pods import QuerySelectionOp
 from ..query.selection import (QueryToolset, apply_query_pod, combine_selection,
                                sample_texture_at_centers)
@@ -384,22 +384,23 @@ class GaussianSplattingSession:
     def render_overlays(self, img: torch.Tensor) -> torch.Tensor:
         """The overlays over a rendered frame, in the reference's paint order:
         mask gizmos, measurement lines, selection texture, brush cursor. The
-        gizmos' and the measurement's segments are drawn in one
-        `rasterize_lines` pass, gizmos first (the image of the two passes)."""
+        gizmos' and the measurement's segments are one list, gizmos first
+        (the image of the two passes). On a CUDA frame all of it is one K9
+        launch (`ops.draw_overlays`)."""
         view, proj = self.viewer._view, self.viewer._proj
         h, w = img.shape[:2]
         parts = [p for p in (gizmo_lines(self.mask.shapes, view, proj, w, h),
                              measurement_lines(self.measurement, view, proj, w, h))
                  if p is not None]
-        if parts:
-            img = rasterize_lines(img, *(np.concatenate(f) for f in zip(*parts)))
+        lines = tuple(np.concatenate(f) for f in zip(*parts)) if parts else None
+        texture = cursor = None
         if self.toolset.state() is not None and self.toolset.use_texture:
-            img = overlay_texture(img, self.toolset.texture)
+            texture = self.toolset.texture
         if (self.action == Action.SELECTION and self.selection.method == SelectionMethod.BRUSH
                 and self.toolset._last_pos is not None):
-            img = overlay_cursor_ring(img, np.asarray(self.toolset._last_pos, np.float32),
-                                      float(self.selection.brush_radius))
-        return img
+            cursor = (np.asarray(self.toolset._last_pos, np.float32),
+                      float(self.selection.brush_radius))
+        return draw_overlays(img, lines, texture, cursor)
 
     def update(self) -> torch.Tensor:
         """One frame: drain the loader and the commands, apply the queries,

@@ -5,6 +5,7 @@ from .composite import (composite_tiles, composite_tiles_plain, composite_tiles_
                         composite_tiles_v2, over_background)
 from .fused import (build_sorted_entries_fused, enumerate_entries_fused, enumerate_entries_plain,
                     preprocess_fused, preprocess_geometry_fused, preprocess_geometry_plain)
+from .overlay import draw_overlays, overlay_cuda
 from .preprocess import PreprocessOut, preprocess
 from .sort import sort_entries, sort_entries_plain
 
@@ -32,6 +33,8 @@ __all__ = [
     "preprocess_fused",
     "preprocess_geometry_fused",
     "preprocess_geometry_plain",
+    "draw_overlays",
+    "overlay_cuda",
     "PreprocessOut",
     "preprocess",
     "sort_entries",

@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--fmad=false"]
 
 LAUNCHES = {"fused": 0, "sort": 0, "composite": 0, "geometry": 0, "enum_pack": 0,
-            "composite_v1": 0, "preprocess": 0}
+            "composite_v1": 0, "preprocess": 0, "overlay": 0}
 # Seconds the last build in this process took (None: no build ran).
 build_seconds = None
 # ptxas's report of each kernel of the last build in this process, by
@@ -62,6 +62,7 @@ _SIGNATURES = {
     "gs_composite_v1": [_P, ctypes.c_longlong, _P, _P] + [_I] * 6 + [_P, _P, _P],
     # K6 with its pixels a thread forced, for measurement only (scripts/ab_port_kernels.py).
     "gs_composite_v1_px": [_P, ctypes.c_longlong, _P, _P] + [_I] * 7 + [_P, _P, _P],
+    "gs_overlay": [ctypes.POINTER(ctypes.c_float)] + [_I] * 4 + [_P] * 5,
 }
 
 

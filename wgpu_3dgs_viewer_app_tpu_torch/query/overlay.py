@@ -1,25 +1,50 @@
 """Selection overlays on a composited (H, W, 3) frame: the in-progress
 rect/brush region and the brush cursor ring. Counterpart of
-`wgpu_3dgs_viewer_app_tpu.query.overlay`; plain torch image passes on the
-frame's device.
+`wgpu_3dgs_viewer_app_tpu.query.overlay`. On a CUDA frame each is one
+launch of kernel K9 (`ops.overlay`, `csrc/overlay.cu`) with that stage
+alone; on the CPU its plain version, a torch image pass, runs.
 """
 
 from __future__ import annotations
 
 import torch
 
+TEXTURE_RGBA = (1.0, 0.0, 1.0, 0.25)
+CURSOR_RGBA = (1.0, 1.0, 1.0, 0.9)
+CURSOR_THICKNESS = 1.5
+
 
 def overlay_texture(img: torch.Tensor, texture: torch.Tensor,
-                    color=(1.0, 0.0, 1.0, 0.25)) -> torch.Tensor:
+                    color=TEXTURE_RGBA) -> torch.Tensor:
     """Tint the pixels the in-progress selection texture covers."""
+    if img.device.type == "cpu":
+        return overlay_texture_plain(img, texture, color)
+    from ..ops.overlay import overlay_cuda
+
+    return overlay_cuda(img, texture=texture, texture_rgba=color)
+
+
+def overlay_cursor_ring(img: torch.Tensor, center, radius, color=CURSOR_RGBA,
+                        thickness: float = CURSOR_THICKNESS) -> torch.Tensor:
+    """Brush cursor ring at `center` (pixels)."""
+    if img.device.type == "cpu":
+        return overlay_cursor_ring_plain(img, center, radius, color, thickness)
+    from ..ops.overlay import overlay_cuda
+
+    return overlay_cuda(img, cursor=(center, radius), cursor_rgba=color, thickness=thickness)
+
+
+def overlay_texture_plain(img: torch.Tensor, texture: torch.Tensor,
+                          color=TEXTURE_RGBA) -> torch.Tensor:
+    """Plain version of K9's tint stage."""
     c = torch.as_tensor(color, dtype=torch.float32, device=img.device)
     t = texture.to(torch.float32)[..., None] * c[3]
     return img * (1.0 - t) + t * c[:3]
 
 
-def overlay_cursor_ring(img: torch.Tensor, center, radius, color=(1.0, 1.0, 1.0, 0.9),
-                        thickness: float = 1.5) -> torch.Tensor:
-    """Brush cursor ring at `center` (pixels)."""
+def overlay_cursor_ring_plain(img: torch.Tensor, center, radius, color=CURSOR_RGBA,
+                              thickness: float = CURSOR_THICKNESS) -> torch.Tensor:
+    """Plain version of K9's ring stage."""
     h, w = img.shape[:2]
     c = torch.as_tensor(color, dtype=torch.float32, device=img.device)
     center = torch.as_tensor(center, dtype=torch.float32, device=img.device)
