@@ -1,0 +1,8 @@
+"""`session.overlay_ms`: the mean of the spans around `GaussianSplattingSession.render_overlays` (the gizmos' segment build on the host and K9), in ms, over
+the window of a traced run; each span is taken by the host clock from the
+benchmark's own wrapper and closed by a sync on both sides."""
+
+
+def read(ctx: dict):
+    spans = ctx.get("spans", {}).get("session.overlay_ms")
+    return 1e3 * sum(spans) / len(spans) if spans else None
