@@ -2214,7 +2214,7 @@ def phase_serve(s, kept: int, smi: str) -> dict:
     from wgpu_3dgs_viewer_app_tpu_torch.app.server import ASSETS
     from wgpu_3dgs_viewer_app_tpu_torch.data import read_ply
     from wgpu_3dgs_viewer_app_tpu_torch.ops import kernels
-    from wgpu_3dgs_viewer_app_tpu_torch.utils import human_readable_size, jpeg
+    from wgpu_3dgs_viewer_app_tpu_torch.utils import human_readable_size, jpeg, trace
 
     t_phase = time.perf_counter()
     w, h = CONFIG4_SIZE
@@ -2263,9 +2263,13 @@ def phase_serve(s, kept: int, smi: str) -> dict:
             t0 = time.perf_counter()
             call("/event", orbit)
             t1 = time.perf_counter()
-            blob = call("/frame.jpg?quality=85")
+            trace.reset()   # each frame's records from an empty list, far from the cap
+            with trace.collect():   # fills vs.frame_ms
+                blob = call("/frame.jpg?quality=85")
             t2 = time.perf_counter()
             part = dict(vs.frame_ms)
+            require(set(part) == {"update", "device", "copy", "host"},
+                    f"a served frame's stages read {part}")
             rows.append({**part, "http": (t2 - t0) * 1e3 - sum(part.values()),
                          "event": (t1 - t0) * 1e3, "total": (t2 - t0) * 1e3, "bytes": len(blob)})
         mean = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]}
@@ -2361,8 +2365,10 @@ def phase_serve(s, kept: int, smi: str) -> dict:
         log(f"phase 9 dirty frame {i}: " + ", ".join(f"{k} {v:.3f}" for k, v in r.items()
                                                      if k != "bytes") + f" ms, {r['bytes']} B")
     log(f"phase 9 dirty frames, mean of 5 (POST /event orbit dx=10, GET /frame.jpg?quality=85): "
-        f"{fmt} ms ('update': update() under the state lock until its device work is done; "
-        f"'device', 'copy', 'host': the encoder's stages; 'http': the rest of both requests); "
+        f"{fmt} ms (host clock, from the frame's spans: 'update': update() under the state "
+        f"lock, which waits for K3 at the background's upload; 'device': the encoder's device "
+        f"stages issued and waited for at the nonzero count; 'copy', 'host': the coefficients' "
+        f"copy and the entropy coder; 'http': the rest of both requests); "
         f"mean {mean['bytes']:.0f} B; cached frame {cached_ms:.3f} ms [{smi}]")
     log(f"phase 9 checks: a dirty frame launched {frame_launches}; an idle poll none, the same "
         f"bytes; served bytes == utils.jpeg of an in-process update() on the card == the CPU "

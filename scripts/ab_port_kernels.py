@@ -47,6 +47,7 @@ record as the last line. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import importlib.util
 import json
@@ -352,6 +353,20 @@ def session(old) -> dict:
     apps = {"other": importlib.import_module("other_port.app"), "this": app}
     masks = {"other": importlib.import_module("other_port.mask"),
              "this": importlib.import_module("wgpu_3dgs_viewer_app_tpu_torch.mask")}
+    # Each tree's span collector, which fills `ViewerServer.frame_ms` (a tree
+    # without one fills it always), from an empty record list each frame.
+    def collector(pkg: str):
+        try:
+            tr = importlib.import_module(f"{pkg}.utils.trace")
+        except ImportError:
+            return contextlib.nullcontext
+
+        def collect():
+            tr.reset()
+            return tr.collect()
+        return collect
+    collecting = {"other": collector("other_port"),
+                  "this": collector("wgpu_3dgs_viewer_app_tpu_torch")}
     sessions, servers, frames = {}, {}, {}
     for side, a in apps.items():
         s = a.GaussianSplattingSession(width=w, height=h, device="cuda", tile=32, max_dup=4)
@@ -385,7 +400,9 @@ def session(old) -> dict:
             vs.handle_event(orbit)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            vs.frame_jpeg(85)
+            with collecting[side]():
+                vs.frame_jpeg(85)
+            assert set(vs.frame_ms) == {"update", "device", "copy", "host"}, vs.frame_ms
             if i >= 2:
                 rows.append(((time.perf_counter() - t0) * 1e3, dict(vs.frame_ms)))
         rec["served_ms"][side].append(sum(r[0] for r in rows) / len(rows))

@@ -61,7 +61,7 @@ from wgpu_3dgs_viewer_app_tpu_torch.query.overlay import (overlay_cursor_ring_pl
                                                           overlay_texture_plain)
 from wgpu_3dgs_viewer_app_tpu_torch.testing import (compare_entries, compare_preprocess,
                                                     compare_preprocess_bits, compare_sorted)
-from wgpu_3dgs_viewer_app_tpu_torch.utils import jpeg
+from wgpu_3dgs_viewer_app_tpu_torch.utils import jpeg, trace
 from wgpu_3dgs_viewer_app_tpu_torch.viewer import MultiModelViewer, Viewer, render_frame
 
 pytestmark = pytest.mark.cuda
@@ -743,6 +743,35 @@ def test_jpeg_on_card_equals_cpu(dev, h, w):
             int.from_bytes(blob[sof + 7:sof + 9], "big")) == (round(h * 0.5), round(w * 0.5))
 
 
+def test_traced_orbit_frame_counts_the_syncs_sync_debug_finds(dev):
+    """A traced orbit frame of a small scene records a `host.read` span for
+    exactly each synchronizing operation torch's sync debug mode reports for
+    it: K2's live count (under `k2.sort`) and the background's upload
+    (under `k3.composite`)."""
+    import warnings
+
+    g = make_random_scene(50_000, seed=4, extent=1.5, scale_range=(0.005, 0.03))
+    v = Viewer(g, 320, 240, device=dev)
+    cam = CameraOrbitControl(target=(0, 0, 0), pos=(0.4, 0.3, -4.5))
+    v.render(cam)
+    torch.cuda.synchronize()
+    trace.reset()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with trace.collect():
+                v.render(cam)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    recs = trace.records
+    reads = [recs[r.parent].name for r in recs if r.name == "host.read"]
+    assert reads == ["k2.sort", "k3.composite"]
+    assert len(reads) == len(syncs)
+
+
 def test_viewer_server_frame_jpeg_on_card(dev):
     """`frame_jpeg` on a session on the card: a dirty frame launches K1, K2
     and K3 once each and serves the encoding of the frame `update()` gives
@@ -758,7 +787,8 @@ def test_viewer_server_frame_jpeg_on_card(dev):
     vs.frame_jpeg(85)  # warm-up
     vs.handle_event({"type": "orbit", "dx": 10.0, "dy": 0.0})
     kernels.reset_launch_counts()
-    blob = vs.frame_jpeg(85)
+    with trace.collect():
+        blob = vs.frame_jpeg(85)
     assert dict(kernels.LAUNCHES) == _only(fused=1, sort=1, composite=1)
     assert set(vs.frame_ms) == {"update", "device", "copy", "host"}
     kernels.reset_launch_counts()

@@ -21,7 +21,7 @@ import torch
 from PIL import Image
 
 import _torch_cpu  # noqa: F401  (one torch thread per test process)
-from wgpu_3dgs_viewer_app_tpu_torch.utils import jpeg
+from wgpu_3dgs_viewer_app_tpu_torch.utils import jpeg, trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZES = [(23, 37), (64, 64), (120, 200)]  # (H, W)
@@ -71,10 +71,13 @@ def test_jpeg_tensor_and_frame_inputs():
     assert np.array_equal(jpeg.frame_to_u8(frame).numpy(), want)
     blob = jpeg.encode_jpeg(want, 85)
     assert jpeg.encode_jpeg(torch.from_numpy(want), 85) == blob
-    marks = {}
-    assert jpeg.encode_frame(frame, 85, marks=marks) == blob
-    assert list(marks) == ["frame", "device", "copy", "host"]
-    assert all(b >= a for a, b in zip(list(marks.values()), list(marks.values())[1:]))
+    with trace.collect():
+        n0 = len(trace.records)
+        assert jpeg.encode_frame(frame, 85) == blob
+        recs = trace.records[n0:]
+    assert [r.name for r in recs] == ["jpeg.device", "jpeg.device", "jpeg.copy", "jpeg.entropy"]
+    assert all(r.end >= r.start for r in recs)
+    assert all(b.start >= a.end for a, b in zip(recs, recs[1:]))
 
 
 @pytest.mark.parametrize("scale", [0.5, 0.37, 1.5])

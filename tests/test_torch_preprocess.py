@@ -271,6 +271,9 @@ def test_gloo_sharded_frame_equals_render_frame(monkeypatch, tmp_path):
     `preprocess_fused` and equals `render_frame` bit for bit; the merged
     two-model frame equals one sort and composite of both models' entries."""
     calls = _spy(monkeypatch, sharded_mod)
+    # The routing stats of this process's sharded render feed the server's
+    # /state: kept to this test, so that a later test's state shows none.
+    monkeypatch.setattr(sharded_mod, "_LAST", dict(sharded_mod._LAST))
     comp = Compressions()
     cfg = TileConfig(64, 48, tile=16, max_dup=8)
     cam = CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -4))

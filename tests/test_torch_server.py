@@ -33,6 +33,7 @@ from wgpu_3dgs_viewer_app_tpu_torch import app
 from wgpu_3dgs_viewer_app_tpu_torch.app import server
 from wgpu_3dgs_viewer_app_tpu_torch.core import CameraFirstPersonControl
 from wgpu_3dgs_viewer_app_tpu_torch.data import make_random_scene, read_ply, write_ply
+from wgpu_3dgs_viewer_app_tpu_torch.utils import trace
 
 W = H = 96
 N = 1536
@@ -273,7 +274,8 @@ def test_server_state_and_set_compressions():
     vs.handle_set({"compressions": {"sh": "half", "cov3d": "single"}})
     assert s.compressions.sh.value == "half"
     assert s.compressions.cov3d.value == "single"
-    blob1 = vs.frame_jpeg(quality=70, scale=0.5)
+    with trace.collect():
+        blob1 = vs.frame_jpeg(quality=70, scale=0.5)
     assert blob1[:2] == b"\xff\xd8"
     blob2 = vs.frame_jpeg(quality=70, max_age=60.0, scale=0.5)
     assert blob2 == blob1  # served from the cache within max_age

@@ -44,6 +44,7 @@ from ..mask.shapes import MaskShapeKind
 from ..query.hit import MeasurementHitMethod
 from ..query.pods import QuerySelectionOp
 from ..query.selection import QueryToolset
+from ..utils import trace
 from ..utils.format import human_readable_size
 from ..utils.jpeg import encode_frame
 from ..utils.log import get_logger
@@ -52,6 +53,9 @@ from .measurement import MeasurementHitPair
 from .state import Action, GaussianSplattingSession, SelectionEdit, SelectionMethod
 
 _LOG = get_logger("server")
+# `ViewerServer.frame_ms`'s keys and the spans they are read from.
+_FRAME_STAGES = {"update": "server.update", "device": "jpeg.device", "copy": "jpeg.copy",
+                 "host": "jpeg.entropy"}
 ASSETS = Path(__file__).parent / "assets"
 
 
@@ -84,9 +88,10 @@ class ViewerServer:
         # Bumped by every mutating request; an unchanged scene serves the
         # cached frame, so an idle client's polling costs no device time.
         self._scene_version = 0
-        # Host-clock ms of the latest rendered frame: `update` (until its
-        # device work is done), the encoder's `device` stages, the `copy` of
-        # its coefficients to the host and its `host` stage.
+        # Host-clock ms of the latest rendered frame while spans record
+        # (`utils.trace`), else {}: `update` (the lock and `update()`), the
+        # encoder's `device` stages, the `copy` of its coefficients to the
+        # host and its `host` stage (the entropy coder).
         self.frame_ms: dict = {}
 
     def mark_dirty(self) -> None:
@@ -103,7 +108,8 @@ class ViewerServer:
         frame is a tensor of its own (never written again), so the encode
         (device stages ordered on the stream, the copy, the host coder) runs
         outside the lock. `update()` itself waits inside the lock for K2's
-        live count (a host read), i.e. until the sort has finished.
+        live count and for the background's upload (`trace.host_read`), the
+        second until the compositor has finished.
         `max_age` (seconds) serves the previous frame while it is that
         fresh; `scale` resizes the encoded image."""
         def cached():
@@ -126,19 +132,18 @@ class ViewerServer:
             blob = cached()
             if blob is not None:
                 return blob
-            t0 = time.perf_counter()
-            with self.lock:
-                # The version is read under the lock mutators bump it under:
-                # a mutation either lands in this frame or invalidates it.
-                ver = self._scene_version
-                img = self.session.update()
-                loading = self.session.loader is not None
-            marks = {}
-            blob = encode_frame(img, quality, scale, marks=marks)
-            stages = ("frame", "device", "copy", "host")
-            self.frame_ms = {"update": (marks["frame"] - t0) * 1e3,
-                             **{b: (marks[b] - marks[a]) * 1e3
-                                for a, b in zip(stages, stages[1:])}}
+            with trace.span("server.frame") as frame:
+                with trace.span("server.update"), self.lock:
+                    # The version is read under the lock mutators bump it
+                    # under: a mutation either lands in this frame or
+                    # invalidates it.
+                    ver = self._scene_version
+                    img = self.session.update()
+                    loading = self.session.loader is not None
+                blob = encode_frame(img, quality, scale)
+            ms = {} if frame is None else trace.frame_ms(frame)
+            self.frame_ms = ({k: ms[name] for k, name in _FRAME_STAGES.items()}
+                             if all(name in ms for name in _FRAME_STAGES.values()) else {})
             # A load in flight drains inside update(), not through a
             # mutating request: such a frame is stale at once.
             self._last_frame = (ver if not loading else ver - 1, quality, scale, blob,

@@ -45,6 +45,7 @@ from ..query.hit import query_hit
 from ..query.pods import QuerySelectionOp
 from ..query.selection import (QueryToolset, apply_query_pod, combine_selection,
                                sample_texture_at_centers)
+from ..utils import trace
 from ..utils.log import get_logger
 from ..viewer.viewer import MultiModelViewer
 from .loader import StreamingLoader
@@ -228,21 +229,22 @@ class GaussianSplattingSession:
         if model is None:
             self.loader = None
             return
-        start = loader.received
-        chunks = []
-        loader.drain(on_chunk=lambda _, chunk: chunks.append(chunk))
-        if chunks:
-            g = chunks[0] if len(chunks) == 1 else Gaussians.concat(chunks)
-            model.buffers.update_range(start, g)
-            host = self._load_host
-            for f in dataclasses.fields(Gaussians):
-                getattr(host, f.name)[start:start + g.count] = getattr(g, f.name)
-            model.gaussians = host.slice(0, loader.received)
-            model.center = model.gaussians.center()
-        if loader.finished:
-            self.loader = None
-            self._load_host = None
-            self._auto_frame(model)
+        with trace.span("loader.drain"):
+            start = loader.received
+            chunks = []
+            loader.drain(on_chunk=lambda _, chunk: chunks.append(chunk))
+            if chunks:
+                g = chunks[0] if len(chunks) == 1 else Gaussians.concat(chunks)
+                model.buffers.update_range(start, g)
+                host = self._load_host
+                for f in dataclasses.fields(Gaussians):
+                    getattr(host, f.name)[start:start + g.count] = getattr(g, f.name)
+                model.gaussians = host.slice(0, loader.received)
+                model.center = model.gaussians.center()
+            if loader.finished:
+                self.loader = None
+                self._load_host = None
+                self._auto_frame(model)
 
     def _auto_frame(self, model) -> None:
         """Frame the default orbit camera on the first fully loaded model
@@ -284,14 +286,19 @@ class GaussianSplattingSession:
     def evaluate_mask(self, op: Optional[MaskOp]) -> None:
         """Evaluate the op tree (None: Reset) over every loaded model on the
         session's device; the bits gate the frame and the queries."""
-        pods = [s.to_pod() for s in self.mask.shapes]
-        for model in self.viewer.models.values():
-            if model.gaussians is None:
-                continue
-            pos = torch.from_numpy(np.ascontiguousarray(model.gaussians.pos)).to(self.device)
-            bits = self.mask_evaluator.evaluate(op, pods, (pos[:, 0], pos[:, 1], pos[:, 2]),
-                                                model.transform)
-            model.buffers.set_mask(bits)
+        cuda = self.device.type == "cuda"
+        with trace.span("session.evaluate_mask"):
+            pods = [s.to_pod() for s in self.mask.shapes]
+            for model in self.viewer.models.values():
+                if model.gaussians is None:
+                    continue
+                host = np.ascontiguousarray(model.gaussians.pos)
+                # From pageable memory: on a card the copy waits for the stream.
+                with trace.span("mask.upload"), trace.host_read(cuda):
+                    pos = torch.from_numpy(host).to(self.device)
+                bits = self.mask_evaluator.evaluate(op, pods, (pos[:, 0], pos[:, 1], pos[:, 2]),
+                                                    model.transform)
+                model.buffers.set_mask(bits)
 
     # --- selection and queries --------------------------------------------------
 
@@ -389,10 +396,11 @@ class GaussianSplattingSession:
         launch (`ops.draw_overlays`)."""
         view, proj = self.viewer._view, self.viewer._proj
         h, w = img.shape[:2]
-        parts = [p for p in (gizmo_lines(self.mask.shapes, view, proj, w, h),
-                             measurement_lines(self.measurement, view, proj, w, h))
-                 if p is not None]
-        lines = tuple(np.concatenate(f) for f in zip(*parts)) if parts else None
+        with trace.span("overlays.segments"):
+            parts = [p for p in (gizmo_lines(self.mask.shapes, view, proj, w, h),
+                                 measurement_lines(self.measurement, view, proj, w, h))
+                     if p is not None]
+            lines = tuple(np.concatenate(f) for f in zip(*parts)) if parts else None
         texture = cursor = None
         if self.toolset.state() is not None and self.toolset.use_texture:
             texture = self.toolset.texture
@@ -405,16 +413,21 @@ class GaussianSplattingSession:
     def update(self) -> torch.Tensor:
         """One frame: drain the loader and the commands, apply the queries,
         render, draw the overlays -> (H, W, 3) f32 on the session's device."""
-        self._drain_loader()
-        self._drain_commands()
-        self.apply_selection_queries()
-        self.viewer.update_gaussian_transform(self.gaussian_transform)
-        edit = self.selection.edit
-        self.viewer.update_selection_edit(edit.to_pod() if edit is not None else None)
-        self.viewer.update_selection_highlight(
-            SelectionHighlightPod(rgba=self.selection.highlight_color),
-            show=self.action == Action.SELECTION)
-        img = self.viewer.render(self.camera.control, show_unedited=self.selection.show_unedited)
-        img = self.render_overlays(img)
-        self.fps.tick()
-        return img
+        with trace.span("session.update"):
+            with trace.span("session.drain"):
+                self._drain_loader()
+                self._drain_commands()
+            with trace.span("session.queries"):
+                self.apply_selection_queries()
+            self.viewer.update_gaussian_transform(self.gaussian_transform)
+            edit = self.selection.edit
+            self.viewer.update_selection_edit(edit.to_pod() if edit is not None else None)
+            self.viewer.update_selection_highlight(
+                SelectionHighlightPod(rgba=self.selection.highlight_color),
+                show=self.action == Action.SELECTION)
+            img = self.viewer.render(self.camera.control,
+                                     show_unedited=self.selection.show_unedited)
+            with trace.span("session.overlays"):
+                img = self.render_overlays(img)
+            self.fps.tick()
+            return img

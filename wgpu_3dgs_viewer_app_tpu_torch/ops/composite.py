@@ -36,6 +36,7 @@ import torch
 
 from ..core.f16 import f16_bits_to_f32, u32, unpack2xf16
 from ..core.f16 import fma_f32 as _fma
+from ..utils import trace
 from . import kernels
 from .binning import (ALPHA_MAX, MEAN_FIX_BIAS, MEAN_FIX_SCALE, N_PLANES, ROW, EntryPlanes,
                       SortedEntries, TileConfig)
@@ -315,6 +316,10 @@ def composite_tiles_v2(entries: SortedEntries, cfg: TileConfig, flat_mode: bool 
 
 
 def over_background(img: torch.Tensor, background) -> torch.Tensor:
-    """Premultiplied (H, W, 4) over an opaque background colour -> (H, W, 3)."""
-    bg = torch.as_tensor(background, dtype=torch.float32, device=img.device)
-    return img[..., :3] + (1.0 - img[..., 3:4]) * bg
+    """Premultiplied (H, W, 4) over an opaque background colour -> (H, W, 3)
+    (the compositor's last step: span `k3.composite`)."""
+    with trace.span("k3.composite"):
+        # A copy from pageable host memory: on a card torch waits for the stream.
+        with trace.host_read(img.is_cuda):
+            bg = torch.as_tensor(background, dtype=torch.float32, device=img.device)
+        return img[..., :3] + (1.0 - img[..., 3:4]) * bg

@@ -8,8 +8,9 @@ import every module on machines without nvcc or a card.
 
 Each kernel wrapper adds one to `LAUNCHES[<name>]` where it launches its
 kernel and nowhere else, so a run can show that the frame went through the
-kernels. A build also records what ptxas reports for each kernel
-(registers, stack frame, spill bytes) in `resource_usage`.
+kernels (`LAUNCHES` is the launch counter of `utils.trace`). A build also
+records what ptxas reports for each kernel (registers, stack frame, spill
+bytes) in `resource_usage`.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import trace
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(os.environ.get("GS_TORCH_BUILD_DIR", CSRC.parent / "_build"))
 
@@ -34,8 +37,8 @@ BUILD_DIR = Path(os.environ.get("GS_TORCH_BUILD_DIR", CSRC.parent / "_build"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--fmad=false"]
 
-LAUNCHES = {"fused": 0, "sort": 0, "composite": 0, "geometry": 0, "enum_pack": 0,
-            "composite_v1": 0, "preprocess": 0, "overlay": 0}
+# The tracing module's launch counter (`utils.trace.launches`), by kernel.
+LAUNCHES = trace.launches
 # Seconds the last build in this process took (None: no build ran).
 build_seconds = None
 # ptxas's report of each kernel of the last build in this process, by

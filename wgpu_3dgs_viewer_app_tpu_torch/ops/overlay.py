@@ -21,6 +21,7 @@ import torch
 from ..core.lines import SEG_WORDS, rasterize_lines_plain, segment_table
 from ..query.overlay import (CURSOR_RGBA, CURSOR_THICKNESS, TEXTURE_RGBA,
                              overlay_cursor_ring_plain, overlay_texture_plain)
+from ..utils import trace
 from . import kernels
 
 # gs_overlay's host parameters: the tint's rgba, the ring's rgba, then the
@@ -91,15 +92,18 @@ def draw_overlays(img: torch.Tensor, lines: tuple | None = None,
     frame one K9 launch (none when nothing is drawn), on the CPU the plain
     versions in turn."""
     if img.device.type == "cpu":
-        if lines is not None:
-            img = rasterize_lines_plain(img, *lines)
-        if texture is not None:
-            img = overlay_texture_plain(img, texture)
-        if cursor is not None:
-            img = overlay_cursor_ring_plain(img, *cursor)
-        return img
+        with trace.span("k9.overlay"):
+            if lines is not None:
+                img = rasterize_lines_plain(img, *lines)
+            if texture is not None:
+                img = overlay_texture_plain(img, texture)
+            if cursor is not None:
+                img = overlay_cursor_ring_plain(img, *cursor)
+            return img
     h, w = img.shape[:2]
-    table = None if lines is None else segment_table(*lines, w, h)
+    with trace.span("overlays.segments"):
+        table = None if lines is None else segment_table(*lines, w, h)
     if (table is None or not len(table)) and texture is None and cursor is None:
         return img
-    return overlay_cuda(img, table, texture, cursor=cursor)
+    with trace.span("k9.overlay"):
+        return overlay_cuda(img, table, texture, cursor=cursor)

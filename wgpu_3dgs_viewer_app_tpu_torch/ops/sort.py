@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..core.f16 import u32
+from ..utils import trace
 from . import kernels
 from .binning import (SENTINEL, SortedEntries, TileConfig, sorted_entries_from_edges,
                       tile_edges_plain)
@@ -50,7 +51,8 @@ def _sort_entries_cuda(entries: torch.Tensor, cfg: TileConfig, shift: int) -> So
     meta = torch.empty(lib.gs_sort_meta_words(), dtype=i32, device=dev)
     kernels.check(lib.gs_sort_upfront(p(entries), n, p(meta), st), "gs_sort_upfront")
     # The live count sizes the sort buffers: one device->host read per frame.
-    n_live = int(meta[_META_LIVE].item())
+    with trace.host_read():
+        n_live = int(meta[_META_LIVE].item())
     buf_a = torch.empty((n_live, 4), dtype=i32, device=dev)
     buf_b = torch.empty((n_live, 4), dtype=i32, device=dev)
     status = torch.empty(max(lib.gs_sort_num_tiles(n), 1) * 256, dtype=i32, device=dev)

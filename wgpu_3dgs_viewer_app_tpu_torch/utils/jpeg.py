@@ -24,11 +24,12 @@ host, with no Python loop over blocks.
 from __future__ import annotations
 
 import struct
-import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import trace
 
 # Annex K, Tables K.1 and K.2, in natural (row-major) order.
 _STD_LUMA_Q = np.array([
@@ -183,13 +184,20 @@ _PASS1_SHIFT = np.where(_EVEN04, 0, _CONST_BITS - _PASS1_BITS)
 _PASS2_SHIFT = np.where(_EVEN04, _PASS1_BITS, _CONST_BITS + _PASS1_BITS)
 
 
+def _constant(a: np.ndarray, dev) -> torch.Tensor:
+    """A constant table on the frame's device. From pageable memory: on a
+    card the copy waits for the stream."""
+    with trace.host_read(dev.type == "cuda"):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
 def _fdct_pass(x: torch.Tensor, weights: np.ndarray, shift: np.ndarray) -> torch.Tensor:
     """One pass along the last axis, in int64. Every sum is the integer that
     libjpeg's butterfly computes, so the result is exact on any device."""
     dev = x.device
-    w = torch.from_numpy(weights).to(dev)
-    sh = torch.from_numpy(shift).to(dev)
-    bias = torch.from_numpy(np.where(shift > 0, 1 << np.maximum(shift - 1, 0), 0)).to(dev)
+    w = _constant(weights, dev)
+    sh = _constant(shift, dev)
+    bias = _constant(np.where(shift > 0, 1 << np.maximum(shift - 1, 0), 0), dev)
     return ((x.unsqueeze(-2) * w).sum(-1) + bias) >> sh
 
 
@@ -200,8 +208,8 @@ def _dct_quantize(blocks: torch.Tensor, table: torch.Tensor, quality: int) -> to
     x = _fdct_pass(blocks.long(), _PASS1_W, _PASS1_SHIFT).transpose(-1, -2)
     coef = _fdct_pass(x, _FDCT_W, _PASS2_SHIFT).transpose(-1, -2).reshape(-1, 64)
     dev = coef.device
-    coef = coef[:, torch.from_numpy(ZIGZAG).to(dev)]
-    recip, corr, shift = (torch.from_numpy(v[:, ZIGZAG]).to(dev)[table]
+    coef = coef[:, _constant(ZIGZAG, dev)]
+    recip, corr, shift = (_constant(v[:, ZIGZAG], dev)[table]
                           for v in _reciprocals(quant_tables(quality) * 8))
     mag = ((coef.abs() + corr) * recip) >> shift
     return torch.where(coef < 0, -mag, mag)
@@ -231,7 +239,7 @@ def coefficients(u8: torch.Tensor, quality: int) -> torch.Tensor:
     # with libjpeg's bias of 1, 2, 1, 2 along a row, then rows to whole MCUs.
     cbcr = _rows_cols(cbcr, h + (h & 1), mc * 16)
     cbcr = cbcr.reshape(2, -1, 2, mc * 8, 2).sum(dim=(2, 4), dtype=torch.int32)
-    cbcr = (cbcr + torch.tensor([1, 2], dtype=torch.int32, device=dev).repeat(mc * 4)) >> 2
+    cbcr = (cbcr + _constant(np.array([1, 2], np.int32), dev).repeat(mc * 4)) >> 2
     blocks = torch.cat([_blocks(_rows_cols(y, hb * 8, wb * 8)),
                         _blocks(_rows_cols(cbcr, mr * 8, mc * 8))])
     table = torch.zeros(blocks.shape[0], dtype=torch.long, device=dev)
@@ -248,7 +256,8 @@ def nonzero_coefficients(coef: torch.Tensor) -> tuple:
     """The nonzero entries of `coefficients`' output, on its device: (flat
     index int32 in block * 64 + zig-zag position order, value int16)."""
     flat = coef.reshape(-1)
-    idx = torch.nonzero(flat).reshape(-1)
+    with trace.host_read(flat.is_cuda):   # the count sizes the result
+        idx = torch.nonzero(flat).reshape(-1)
     return idx.to(torch.int32), flat[idx]
 
 
@@ -403,38 +412,30 @@ def entropy_code(idx: np.ndarray, val: np.ndarray, width: int, height: int,
     return _header(width, height, quant_tables(quality)) + _pack(bits, length) + b"\xff\xd9"
 
 
-def _mark(marks: dict | None, name: str, t: torch.Tensor) -> None:
-    """Record when the work queued so far on `t`'s device has finished."""
-    if marks is not None:
-        if t.is_cuda:
-            torch.cuda.synchronize(t.device)
-        marks[name] = time.perf_counter()
-
-
-def encode_jpeg(u8, quality: int = 85, marks: dict | None = None) -> bytes:
+def encode_jpeg(u8, quality: int = 85) -> bytes:
     """(H, W, 3) uint8 (a tensor on any device, or numpy) -> JPEG bytes.
-    With `marks`, the host clock (`time.perf_counter`) is recorded when the
-    device stages (`"device"`), the copy of the nonzero coefficients to the
-    host (`"copy"`) and the entropy coder (`"host"`) have finished."""
+    Spans: the device stages (`jpeg.device`: issued, and waited for where
+    the nonzero count is read), the copy of the nonzero coefficients to the
+    host (`jpeg.copy`) and the entropy coder (`jpeg.entropy`)."""
     if not torch.is_tensor(u8):
         u8 = torch.from_numpy(np.ascontiguousarray(u8, np.uint8))
     h, w = u8.shape[:2]
-    idx, val = nonzero_coefficients(coefficients(u8, quality))
-    _mark(marks, "device", u8)
-    idx, val = idx.cpu().numpy(), val.cpu().numpy()
-    _mark(marks, "copy", u8)
-    blob = entropy_code(idx, val, w, h, quality)
-    _mark(marks, "host", u8)
-    return blob
+    with trace.span("jpeg.device"):
+        idx, val = nonzero_coefficients(coefficients(u8, quality))
+    with trace.span("jpeg.copy"):
+        with trace.host_read(u8.is_cuda):
+            idx = idx.cpu().numpy()
+        with trace.host_read(u8.is_cuda):
+            val = val.cpu().numpy()
+    with trace.span("jpeg.entropy"):
+        return entropy_code(idx, val, w, h, quality)
 
 
-def encode_frame(img: torch.Tensor, quality: int = 85, scale: float = 1.0,
-                 marks: dict | None = None) -> bytes:
+def encode_frame(img: torch.Tensor, quality: int = 85, scale: float = 1.0) -> bytes:
     """A rendered (H, W, 3) f32 frame -> JPEG bytes: uint8 on its device,
-    the optional resize, then `encode_jpeg`. With `marks`, also records
-    when the frame itself was done (`"frame"`)."""
-    _mark(marks, "frame", img)
-    u8 = frame_to_u8(img)
-    if scale != 1.0:
-        u8 = resize_u8(u8, scale)
-    return encode_jpeg(u8, quality, marks)
+    the optional resize (both in `jpeg.device`), then `encode_jpeg`."""
+    with trace.span("jpeg.device"):
+        u8 = frame_to_u8(img)
+        if scale != 1.0:
+            u8 = resize_u8(u8, scale)
+    return encode_jpeg(u8, quality)

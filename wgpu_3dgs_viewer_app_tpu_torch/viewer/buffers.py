@@ -27,6 +27,7 @@ from ..core.edit import make_edit_soa
 from ..core.f16 import as_i32, u32
 from ..data.compression import Compressions, flat_pod_to_words, pack_gaussians, pod_to_tensors
 from ..data.gaussian import Gaussians
+from ..utils import trace
 
 
 def _flags_tensor(flags, device) -> torch.Tensor:
@@ -67,7 +68,10 @@ class GaussianBuffers:
         words = flat_pod_to_words(pack_gaussians(chunk, self.comp), self.comp)
         words = pod_to_tensors(words, "cpu")
         for k, v in words.items():
-            self.pod[k][..., start:start + n].copy_(v)
+            dst = self.pod[k][..., start:start + n]
+            # From pageable memory: on a card each copy waits for the stream.
+            with trace.host_read(dst.is_cuda):
+                dst.copy_(v)
         self.loaded = max(self.loaded, start + n)
 
     def upload_all(self, g: Gaussians) -> None:

@@ -36,6 +36,7 @@ from ..ops.binning import TileConfig, build_sorted_entries, enumerate_entries_fr
 from ..ops.composite import composite_tiles_v2, over_background
 from ..ops.fused import enumerate_entries_fused, preprocess_fused
 from ..ops.sort import sort_entries
+from ..utils import trace
 from .buffers import GaussianBuffers
 
 
@@ -191,20 +192,25 @@ class MultiModelViewer:
                        out=None) -> torch.Tensor:
         """One model's unsorted entries under `cfg` with model rank `rank`,
         by the viewer's front-end route; written into `out` when given."""
-        m = self.models[key]
-        gt = self.gaussian_transform
-        kw = dict(sh_degree=gt.sh_deg.degree, no_sh0=gt.no_sh0, size=gt.size,
-                  display_mode=int(gt.display_mode), **self._gating_kwargs(m, show_unedited))
-        if self.fused:
-            return enumerate_entries_fused(m.buffers.pod, self.comp, cfg, self._view, self._proj,
-                                           m.transform.matrix(), model_rank=rank, out=out, **kw)
-        pre = preprocess_fused(m.buffers.pod, self.comp, self._view, self._proj,
-                               m.transform.matrix(), cfg.width, cfg.height, **kw)
-        return enumerate_entries_from_pre(pre, cfg, model_rank=rank, out=out)
+        with trace.span("k1.frontend"):
+            m = self.models[key]
+            gt = self.gaussian_transform
+            kw = dict(sh_degree=gt.sh_deg.degree, no_sh0=gt.no_sh0, size=gt.size,
+                      display_mode=int(gt.display_mode), **self._gating_kwargs(m, show_unedited))
+            if self.fused:
+                return enumerate_entries_fused(m.buffers.pod, self.comp, cfg, self._view,
+                                               self._proj, m.transform.matrix(), model_rank=rank,
+                                               out=out, **kw)
+            pre = preprocess_fused(m.buffers.pod, self.comp, self._view, self._proj,
+                                   m.transform.matrix(), cfg.width, cfg.height, **kw)
+            return enumerate_entries_from_pre(pre, cfg, model_rank=rank, out=out)
 
     def _composite(self, entries: torch.Tensor, cfg: TileConfig) -> torch.Tensor:
         flat = self.gaussian_transform.display_mode != GaussianDisplayMode.SPLAT
-        return composite_tiles_v2(sort_entries(entries, cfg), cfg, flat_mode=flat)
+        with trace.span("k2.sort"):
+            se = sort_entries(entries, cfg)
+        with trace.span("k3.composite"):
+            return composite_tiles_v2(se, cfg, flat_mode=flat)
 
     def render_model(self, key: str, show_unedited: bool = False) -> torch.Tensor:
         """One model -> (H, W, 4) premultiplied rgba on the viewer's device.
@@ -233,15 +239,17 @@ class MultiModelViewer:
     def render(self, camera: Optional[CameraTrait] = None,
                show_unedited: bool = False) -> torch.Tensor:
         """Full frame -> (H, W, 3) f32 over the background."""
-        if camera is not None:
-            self.update_camera(camera)
-        order = self.model_order()
-        if not order:
-            bg = torch.as_tensor(self.background, device=self.device)
-            return bg.expand(self.cfg.height, self.cfg.width, 3).clone()
-        if len(order) > 1:
-            return self._render_merged(order, show_unedited)
-        return over_background(self.render_model(order[0], show_unedited), self.background)
+        with trace.span("viewer.render"):
+            with trace.span("viewer.prologue"):
+                if camera is not None:
+                    self.update_camera(camera)
+                order = self.model_order()
+            if not order:
+                bg = torch.as_tensor(self.background, device=self.device)
+                return bg.expand(self.cfg.height, self.cfg.width, 3).clone()
+            if len(order) > 1:
+                return self._render_merged(order, show_unedited)
+            return over_background(self.render_model(order[0], show_unedited), self.background)
 
     def merged_config(self, n_models: int) -> TileConfig:
         """The viewer's tiling with a rank field wide enough for `n_models`."""
@@ -253,9 +261,10 @@ class MultiModelViewer:
         n - 1 - i (nearest = 0); each front-end launch writes its rows of the
         one buffer, so nothing is concatenated."""
         n = len(order)
-        cfg_m = self.merged_config(n)
-        rows = [self.models[k].buffers.capacity * cfg_m.max_dup for k in order]
-        entries = torch.empty((sum(rows), 4), dtype=torch.int32, device=self.device)
+        with trace.span("viewer.prologue"):
+            cfg_m = self.merged_config(n)
+            rows = [self.models[k].buffers.capacity * cfg_m.max_dup for k in order]
+            entries = torch.empty((sum(rows), 4), dtype=torch.int32, device=self.device)
         start = 0
         for i, (key, r) in enumerate(zip(order, rows)):
             self._model_entries(key, cfg_m, n - 1 - i, show_unedited, out=entries[start:start + r])
