@@ -230,6 +230,14 @@ def require(cond, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def k3_launches(frames: int = 1, tile: int = 32) -> int:
+    """K3's launches over `frames` frames at `tile`: two a frame where its
+    walk is split in two passes (`ops.composite.composite_launches`)."""
+    from wgpu_3dgs_viewer_app_tpu_torch.ops.composite import composite_launches
+
+    return frames * composite_launches(tile)
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() over `reps` runs after one warm-up, by CUDA
     events on the current stream. Host gaps inside fn count: every "ms" and
@@ -1063,7 +1071,7 @@ def phase_config1(g, cam, device, smi: str, rec: dict) -> dict:
     ms = (time.perf_counter() - t1) * 1e3 / frames
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = {**dict.fromkeys(launches, 0), "fused": 7, "sort": 7, "composite": 7}
+    want = {**dict.fromkeys(launches, 0), "fused": 7, "sort": 7, "composite": k3_launches(7)}
     require(launches == want, f"config-1 path, 7 frames: launched {launches}, expected {want}")
     coverage = check_frame(img, "config 1")
     # The frame against the plain compositor on the frame's own sorted entries.
@@ -1290,7 +1298,7 @@ def phase_compositors(g1, cam1, v2_img, device, smi: str, rec: dict) -> dict:
 
     # The row-major frame at config 1 (the mxu mode's path).
     ms, img, peak, launches = timed_frames(rows_frame(pod, comp, cfg, cam1))
-    want = {**dict.fromkeys(launches, 0), "fused": 7, "sort": 7, "composite": 7}
+    want = {**dict.fromkeys(launches, 0), "fused": 7, "sort": 7, "composite": k3_launches(7)}
     require(launches == want, f"row-major path, 7 frames: launched {launches}, expected {want}")
     coverage = check_frame(img, "row-major config 1")
     d = (img - v2_img).abs()
@@ -1600,7 +1608,8 @@ def phase_config2(models: list, device, smi: str, rec: dict) -> dict:
         frame()
         one = dict(kernels.LAUNCHES)
         front = {"fused": n_models} if fused else {"preprocess": n_models, "enum_pack": n_models}
-        want = {**dict.fromkeys(kernels.LAUNCHES, 0), "sort": 1, "composite": 1, **front}
+        want = {**dict.fromkeys(kernels.LAUNCHES, 0), "sort": 1, "composite": k3_launches(),
+                **front}
         require(one == want, f"config 2 {route}: one frame launched {one}, expected {want}")
         coverage = check_frame(img, f"config 2 {route}", size=CONFIG2_SIZE)
         images[route], out[route] = img, launches
@@ -2097,7 +2106,8 @@ def phase_config4(g, device, smi: str, rec: dict) -> tuple:
 
     # Timed frames with the gizmos.
     ms, img, peak, launches = timed_frames(s.update)
-    want = {**dict.fromkeys(launches, 0), "fused": 7, "sort": 7, "composite": 7, "overlay": 7}
+    want = {**dict.fromkeys(launches, 0), "fused": 7, "sort": 7, "composite": k3_launches(7),
+            "overlay": 7}
     require(launches == want, f"config-4 session, 7 frames: launched {launches}, expected {want}")
     frames_launches = launches
     # The kept splats fill a box of 1.5 and a ball around the origin, seen
@@ -2280,8 +2290,8 @@ def phase_serve(s, kept: int, smi: str) -> dict:
         kernels.reset_launch_counts()
         blob = call("/frame.jpg?quality=85")
         frame_launches = dict(kernels.LAUNCHES)
-        want = {**dict.fromkeys(frame_launches, 0), "fused": 1, "sort": 1, "composite": 1,
-                "overlay": 1}
+        want = {**dict.fromkeys(frame_launches, 0), "fused": 1, "sort": 1,
+                "composite": k3_launches(), "overlay": 1}
         require(frame_launches == want, f"a dirty frame launched {frame_launches}")
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2470,7 +2480,7 @@ def phase_sharded(g, cam, device, smi: str, rec: dict) -> dict:
         ms, img, peak, launches7 = timed_frames(sharded)
         ms_single, ref, peak_single, single7 = timed_frames(single)
         want1 = {**dict.fromkeys(single7, 0), "preprocess": 7, "enum_pack": 7, "sort": 7,
-                 "composite": 7}
+                 "composite": k3_launches(7)}
         require(single7 == want1, f"7 render_frame frames launched {single7}, expected {want1}")
         # render_frame on K8 against the same pipeline on the plain preprocess.
         plain = over_background(composite_tiles_v2(build_sorted_entries(
@@ -2484,7 +2494,7 @@ def phase_sharded(g, cam, device, smi: str, rec: dict) -> dict:
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         want = {**dict.fromkeys(launches, 0), "preprocess": 1, "enum_pack": 1, "sort": 2,
-                "composite": 1}
+                "composite": k3_launches()}
         require(launches == want, f"one sharded frame launched {launches}, expected {want}")
         want7 = {k: 7 * v for k, v in want.items()}
         require(launches7 == want7, f"7 sharded frames launched {launches7}, expected {want7}")

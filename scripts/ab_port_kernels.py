@@ -30,6 +30,14 @@ libraries are built and loaded in one process. `--parts` picks what runs
   the mean of 20 calls by CUDA events (`chip_smoke.cuda_ms`). The two
   trees' images must agree within 1e-4; whether they are equal bit for bit
   is printed.
+- cells: K3 on the benchmark's own frames (`scripts/profile_port_frame.py`
+  builds them through `portbench/harness`): the `inria6m.orbit` and
+  `multi3x1m.orbit` scenes at `--yaws` orbit yaws spread over the circle,
+  and the `inria6m.edit` session's gated frame (mask and the warm-up's rect
+  selection) at its start yaw, each as the cell's viewer sorts it. The two
+  trees' images must be equal bit for bit; each side's K3 device time (the
+  sum of its `composite_v2_kernel` launches, under torch.profiler) is taken
+  in turns.
 - frame: the config-1 frame through each tree's `Viewer.render`, 5 frames
   after 2 warm-ups by the host clock, in turns.
 - session: BASELINE config 4 through each tree's `GaussianSplattingSession`
@@ -319,6 +327,68 @@ def compositors(old, ops, smi: str) -> dict:
     return rec
 
 
+def k3_device_ms(fn, reps: int = 20):
+    """K3's device time a call of fn(): its `composite_v2_kernel` launches
+    (one or two passes) under torch.profiler, and the other device
+    operations fn() ran beside them, by name; (None, {}) where the profiler
+    saw no device time."""
+    import chip_smoke
+
+    found = chip_smoke.device_kernel_ms(fn, reps)
+    if found is None:
+        return None, {}
+    k3 = sum(v for k, v in found[0].items() if "composite_v2_kernel" in k)
+    return k3, {k: v for k, v in found[0].items() if "composite_v2_kernel" not in k}
+
+
+def cells(old, ops, yaws: int, seed: int) -> dict:
+    """K3 on the benchmark's frames, old against new (the module's
+    docstring)."""
+    import math
+
+    import torch
+
+    import profile_port_frame as ppf
+
+    def one(label: str, se, cfg) -> dict:
+        a = old.composite_tiles_v2(se, cfg)
+        b = ops.composite_tiles_v2(se, cfg)
+        equal = bool(torch.equal(a, b))
+        if not equal:
+            raise AssertionError(f"{label}: K3's image differs from the other tree's "
+                                 f"(max abs {float((a - b).abs().max()):.3e})")
+        t = [k3_device_ms(lambda: side.composite_tiles_v2(se, cfg))
+             for side in (old, ops, ops, old)]
+        r = {"bit_equal": equal, "other_device_ms": [t[0][0], t[3][0]],
+             "this_device_ms": [t[1][0], t[2][0]], "this_other_ops": t[1][1]}
+        print(f"{label}: bit for bit {equal}; K3 device only: other {r['other_device_ms']}, "
+              f"this {r['this_device_ms']} ms; this tree's other device ops "
+              f"{ {k[:40]: round(v, 4) for k, v in t[1][1].items()} }", flush=True)
+        return r
+
+    rec = {}
+    for name in ("inria6m.orbit", "multi3x1m.orbit"):
+        cell, d, v = ppf.cell_driver(name, seed)
+        for k in range(yaws):
+            yaw = 2.0 * math.pi * k / yaws
+            se, cfg = ppf.cell_sorted(cell, v, yaw)
+            rec[f"{name}@{math.degrees(yaw):.0f}"] = one(
+                f"{name} seed {seed} yaw {math.degrees(yaw):.0f} deg", se, cfg)
+            del se
+        del d, v
+        torch.cuda.empty_cache()
+    cell, d, v = ppf.cell_driver("inria6m.edit", seed)
+    se, cfg = ppf.cell_sorted(cell, v, d.yaw0)
+    gates = sorted(k for k, t in (("mask", v.models[d.key].buffers.mask),
+                                  ("selection", v.models[d.key].buffers.selection))
+                   if t is not None)
+    rec["inria6m.edit"] = one(f"inria6m.edit seed {seed} gated frame ({', '.join(gates)})",
+                              se, cfg)
+    del se, d, v
+    torch.cuda.empty_cache()
+    return rec
+
+
 def frame(old) -> dict:
     """The config-1 frame through each tree's `Viewer.render`, in turns."""
     import chip_smoke
@@ -433,10 +503,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="root of the other checkout")
     ap.add_argument("--parts", default="frontend,compositors,frame",
-                    help="comma-separated: frontend, compositors, frame, session")
+                    help="comma-separated: frontend, compositors, cells, frame, session")
+    ap.add_argument("--yaws", type=int, default=10, help="cells: orbit yaws a scene")
+    ap.add_argument("--seed", type=int, default=3200000003, help="cells: the cells' seed")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
-    if not parts <= {"frontend", "compositors", "frame", "session"}:
+    if not parts <= {"frontend", "compositors", "cells", "frame", "session"}:
         ap.error(f"unknown parts in {args.parts}")
     if not torch.cuda.is_available():
         print("ab_port_kernels: no CUDA device", file=sys.stderr)
@@ -454,6 +526,8 @@ def main() -> int:
         rec["frontend"] = frontend(old, ops, args.parent)
     if "compositors" in parts:
         rec.update(compositors(old, ops, smi))
+    if "cells" in parts:
+        rec["cells"] = cells(old, ops, args.yaws, args.seed)
     if "frame" in parts:
         rec["config1_frame"] = frame(old)
     if "session" in parts:

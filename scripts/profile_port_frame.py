@@ -9,6 +9,7 @@ few frames of a BASELINE cell, device time per kernel and the idle share.
     python3 scripts/profile_port_frame.py --config 1 --route v1     # the v1 chain, K6
     python3 scripts/profile_port_frame.py --config 1 --route rows   # row-major v2, K3 basis
     python3 scripts/profile_port_frame.py --config 1 --tiles  # + K3 tile by tile
+    python3 scripts/profile_port_frame.py --tiles --scene inria6m --yaws 5  # the benchmark's
 
 Config 1 is the plain orbit frame; config 3 is the selection-and-editing
 step that `chip_smoke.py` phase 5 times (`chip_smoke.config3_step`: query
@@ -26,14 +27,18 @@ per kernel (ms per frame, share of device time), the device's busy and
 wall time over the profiled frames, and the card's name and power limit.
 With --tiles (config 1 and config 2 fused), also what bounds the v2
 compositor's span: the frame's sorted entries composited whole and with
-each tile alone (the other tiles' counts set to 0), and the chunks the
-slowest tiles walk before their exits (from the plain version). Needs a
-CUDA device.
+each tile alone (the other tiles' counts set to 0), the chunks each tile
+walks before its exit (from the plain version), K3's device time by kernel
+and the tiles its first pass hands to its second (`tile_walk`). With
+--scene, the same on the benchmark's scene of that name (`portbench/`'s
+scene maker and orbit camera, `cell_walks`) at several yaws, and no frame
+profile. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -62,15 +67,24 @@ def config1_sorted(g, cam) -> tuple:
                                                 np.eye(4, dtype=np.float32)), cfg)
 
 
-def tile_walk(se, cfg, top: int = 6) -> str:
+def tile_walk(se, cfg, top: int = 6) -> dict:
     """The v2 compositor (Horner, the viewer's call) on the whole frame and on
     each tile alone; a tile alone takes its time less that of a launch with
     every count 0 (mean of 3 calls by CUDA events, so below the host's
-    launch time it reads ~0)."""
+    launch time it reads ~0). With the chunks each tile walks (the plain
+    version's stats), the tiles that walk more than 2, 4, 8 and 16 of them,
+    the waves of the first launch (tiles over 4 blocks an SM at tiles up to
+    32 px, one above), K3's device time by kernel under torch.profiler (its
+    first pass and, where there is one, its second), and the tiles and
+    chunks the first pass hands on (`trace.k3_resumed`; None at tiles that
+    K3 does not split by a budget). Prints one line; returns the numbers."""
     import dataclasses
+
+    import torch
 
     import chip_smoke
     from wgpu_3dgs_viewer_app_tpu_torch.ops import composite_tiles_plain_v2, composite_tiles_v2
+    from wgpu_3dgs_viewer_app_tpu_torch.utils import trace
 
     def ms(s, reps):
         return chip_smoke.cuda_ms(lambda: composite_tiles_v2(s, cfg), reps)
@@ -84,20 +98,87 @@ def tile_walk(se, cfg, top: int = 6) -> str:
         alone.append(ms(dataclasses.replace(se, tile_counts=counts), 3) - empty)
     work = {}
     composite_tiles_plain_v2(se, cfg, stats=work)
+    walked = work["walked"].tolist()
     order = sorted(range(cfg.n_tiles), key=lambda t: -alone[t])
-    slow = []
-    for t in order[:top]:
-        one = {}
-        counts = zero.tile_counts.clone()
-        counts[t] = se.tile_counts[t]
-        composite_tiles_plain_v2(dataclasses.replace(se, tile_counts=counts), cfg, stats=one)
-        slow.append(f"tile {t}: {alone[t] * 1e3:.1f} us, {one['rows']} chunks walked, "
-                    f"{int(se.tile_counts[t])} entries")
-    med = sorted(alone)[cfg.n_tiles // 2]
-    return (f"K3 tile walk: whole {whole * 1e3:.1f} us, empty launch {empty * 1e3:.1f} us; "
-            f"a tile alone: median {med * 1e3:.1f} us, slowest: {'; '.join(slow)}; chunks "
-            f"walked per tile: mean {work['rows'] / cfg.n_tiles:.2f} ({work['rows']} chunks, "
-            f"{cfg.n_tiles} tiles)")
+    slow = [{"tile": t, "alone_us": alone[t] * 1e3, "chunks": walked[t],
+             "entries": int(se.tile_counts[t])} for t in order[:top]]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    found = chip_smoke.device_kernel_ms(lambda: composite_tiles_v2(se, cfg), 20)
+    kernels_ms = ({} if found is None else
+                  {k: v for k, v in found[0].items() if "composite_v2_kernel" in k})
+    trace.reset()
+    with trace.collect():
+        composite_tiles_v2(se, cfg)
+    resumed = trace.k3_resumed()
+    trace.reset()
+    r = {"whole_us": whole * 1e3, "empty_us": empty * 1e3,
+         "median_alone_us": sorted(alone)[cfg.n_tiles // 2] * 1e3, "slowest": slow,
+         "slowest_share": alone[order[0]] / whole, "tiles": cfg.n_tiles,
+         "chunks_mean": work["rows"] / cfg.n_tiles, "chunks_max": max(walked),
+         "walk_over": {k: sum(1 for w in walked if w > k) for k in (2, 4, 8, 16)},
+         "waves": cfg.n_tiles / (sms * (4 if cfg.tile <= 32 else 1)),
+         "k3_device_us": {k: v * 1e3 for k, v in kernels_ms.items()},
+         "resumed": resumed}
+    print(f"K3 tile walk: whole {r['whole_us']:.1f} us, empty launch {r['empty_us']:.1f} us; "
+          f"a tile alone: median {r['median_alone_us']:.1f} us, slowest: "
+          + "; ".join(f"tile {d['tile']}: {d['alone_us']:.1f} us, {d['chunks']} chunks walked, "
+                      f"{d['entries']} entries" for d in slow)
+          + f"; slowest alone / whole {r['slowest_share']:.3f}; chunks walked per tile: mean "
+          f"{r['chunks_mean']:.2f}, max {r['chunks_max']}, tiles over 2/4/8/16 chunks "
+          f"{'/'.join(str(v) for v in r['walk_over'].values())} of {cfg.n_tiles}; "
+          f"{r['waves']:.2f} waves on {sms} SMs; K3 device "
+          + ", ".join(f"{k[:60]} {v:.1f} us" for k, v in r["k3_device_us"].items())
+          + f"; resumed (tiles, chunks) {resumed}", flush=True)
+    return r
+
+
+def cell_driver(name: str, seed: int) -> tuple:
+    """A benchmark cell on the card (`portbench/harness`): its scene from the
+    seed and its program set up and warmed as a run of the cell does them
+    (the edit cell's mask evaluated and each gesture made once). Returns the
+    cell, its driver and its viewer."""
+    sys.path.insert(0, os.path.join(REPO, "portbench"))
+    from harness import drive, spec
+    from harness import scene as cell_scene
+
+    cell = spec.resolve(name)
+    d = drive.make(cell, cell_scene.make_models(cell.config, seed, "cuda"), seed, "cuda", False)
+    d.warm(int(cell.traffic.get("warm_steps", 3)))
+    return cell, d, d.session.viewer if hasattr(d, "session") else d.viewer
+
+
+def cell_sorted(cell, v, yaw: float) -> tuple:
+    """The sorted entries and config of the cell's frame at orbit `yaw`
+    (radians), as its viewer makes them: the merged entries where several
+    models show, gated by what the viewer's buffers hold."""
+    from harness import drive
+    from harness import reference as ref
+    from wgpu_3dgs_viewer_app_tpu_torch.ops import sort_entries
+
+    v.update_camera(drive.port_camera(ref.camera_at(cell.config, yaw)))
+    order = v.model_order()
+    if len(order) > 1:
+        ent, cfg = v.merged_entries(order)
+    else:
+        ent, cfg = v._model_entries(order[0], v.cfg, 0, False), v.cfg
+    return sort_entries(ent, cfg), cfg
+
+
+def cell_walks(scene: str, yaws: int, seed: int) -> list:
+    """`tile_walk` on a benchmark scene (the `<scene>.orbit` cell's
+    configuration, viewer and seed) at `yaws` orbit yaws spread evenly over
+    the circle."""
+    import math
+
+    cell, _, v = cell_driver(f"{scene}.orbit", seed)
+    out = []
+    for k in range(yaws):
+        yaw = 2.0 * math.pi * k / yaws
+        se, cfg = cell_sorted(cell, v, yaw)
+        print(f"{scene} seed {seed}, yaw {math.degrees(yaw):.1f} deg:", end=" ", flush=True)
+        out.append({"yaw_deg": math.degrees(yaw), **tile_walk(se, cfg)})
+        del se
+    return out
 
 
 def main() -> int:
@@ -115,11 +196,19 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--tiles", action="store_true",
                     help="config 1 or config 2 fused: also time the compositor tile by tile")
+    ap.add_argument("--scene", choices=("inria6m", "multi3x1m"),
+                    help="with --tiles: the benchmark's scene of that name (the orbit cell's) "
+                         "instead of a BASELINE config, at --yaws orbit yaws")
+    ap.add_argument("--yaws", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=3200000003, help="--scene: the cell's seed")
+    ap.add_argument("--out", help="--scene: write the numbers as JSON here")
     args = ap.parse_args()
+    if args.scene and not args.tiles:
+        ap.error("--scene applies with --tiles")
     if args.route not in {1: ("fused", "v1", "rows"), 2: ("fused", "staged"), 3: ("fused",)}[
             args.config]:
         ap.error(f"--route {args.route} does not apply to --config {args.config}")
-    if args.tiles and (args.config == 3 or args.route != "fused"):
+    if args.tiles and not args.scene and (args.config == 3 or args.route != "fused"):
         ap.error("--tiles applies to --config 1 or 2 on the fused route")
     if not torch.cuda.is_available():
         print("profile_port_frame: no CUDA device", file=sys.stderr)
@@ -127,6 +216,13 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
                           "-i", "0"], capture_output=True, text=True, check=True).stdout.strip()
     kernels.library()
+    if args.scene:
+        walks = cell_walks(args.scene, args.yaws, args.seed)
+        print(smi)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"scene": args.scene, "seed": args.seed, "smi": smi, "yaws": walks}, f)
+        return 0
     if args.config == 2:
         models = chip_smoke.config2_models()
         n_splats, what = sum(g.count for g in models), f"config 2 ({args.route} route)"
@@ -156,7 +252,7 @@ def main() -> int:
     for name, ms, count in rows:
         print(f"  {ms:8.3f} ms/frame  {ms * args.frames / busy:6.1%}  x{count:<3d} {name[:90]}")
     if args.tiles:
-        print(tile_walk(*sorted_entries()), flush=True)
+        tile_walk(*sorted_entries())
     print(smi)
     return 0
 

@@ -158,6 +158,7 @@ def main() -> int:
 
     from wgpu_3dgs_viewer_app_tpu_torch.data import native
     from wgpu_3dgs_viewer_app_tpu_torch.ops import kernels
+    from wgpu_3dgs_viewer_app_tpu_torch.ops.composite import composite_launches
 
     smi = ""
     if args.device == "cuda":
@@ -182,7 +183,7 @@ def main() -> int:
                 recs.append(json.load(f))
             print(json.dumps(recs[-1]))
     want = {**dict.fromkeys(recs[0]["launches"], 0), "preprocess": 1, "enum_pack": 1,
-            "sort": 2, "composite": 1} if args.device == "cuda" else None
+            "sort": 2, "composite": composite_launches(32)} if args.device == "cuda" else None
     checks = {
         "same_on_every_rank": all(r["same_on_every_rank"] for r in recs),
         "overflow_0": all(r["overflow"] == 0 for r in recs),

@@ -56,6 +56,7 @@ from wgpu_3dgs_viewer_app_tpu_torch.ops import (
     over_background, overlay_cuda, preprocess, preprocess_fused, preprocess_geometry_fused,
     preprocess_geometry_plain, sort_entries, sort_entries_plain)
 from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import tile_list_entries
+from wgpu_3dgs_viewer_app_tpu_torch.ops.composite import composite_budget, composite_launches
 from wgpu_3dgs_viewer_app_tpu_torch.query import QuerySelectionOp, QueryToolset
 from wgpu_3dgs_viewer_app_tpu_torch.query.overlay import (overlay_cursor_ring_plain,
                                                           overlay_texture_plain)
@@ -344,19 +345,24 @@ def test_sort_kernel_matches_plain(dev, e, frac, n_keys):
     (16, 0, False, False), (16, 0, False, True), (32, 0, False, True), (32, 2, False, False),
     (16, 1, True, True), (10, 0, True, True)]
     + [(tile, mode, True, mxu) for tile in (40, 64, 128, 256, 257, 320)
-       for mode, mxu in ((0, False), (0, True), (1, False))])
+       for mode, mxu in ((0, False), (0, True), (1, False))]
+    + [(tile, 2, True, False) for tile in (40, 64, 128)])
 def test_composite_kernel_matches_plain(dev, tile, mode, transposed, mxu):
     """K3 vs its plain version within rounding in every mode of the wrapper
-    (Horner or quadratic-basis exponent, splat or flat, both `transposed`):
-    one launch of the one kernel each (two over 256 px); `transposed`
-    selects nothing. Tile 10 leaves the last 4-pixel group of each row half
-    outside the tile. Over 32 px: tiles 40 and 64 run one block of up to
+    (Horner or quadratic-basis exponent, splat, ellipse or point, both
+    `transposed`): the one kernel, in one launch up to 16 px and from 65 to
+    256, in two from 23 to 32 (a budgeted first pass, then the tiles that
+    outlast it across a cluster) and over 256; `transposed` selects
+    nothing. Tile 10 leaves the last 4-pixel group of each row half outside
+    the tile. Over 32 px: tiles 40 and 64 run pass 1 in one block of up to
     1024 threads a tile, 128 a cluster of 4 row bands and 256 one of 16 (the
     most a cluster holds), which stop together at the whole-tile exit test;
     257 and 320 run 32-px parts in two launches, which keep that test (512,
     below, on an image smaller than the tile: at 1920x1080 the entries'
     tile-relative means, clamped to +-128 px, leave most of a 512-px tile
-    empty)."""
+    empty, and from 256 px so few of point mode's small splats land that
+    its frame covers under 5%: point mode runs to 128 here, and over 256
+    below)."""
     comp = ALL_COMPRESSIONS[5]
     pod = _pod(comp, 50000, dev)
     cfg = TileConfig(1920, 1080, tile=tile, max_dup=4)
@@ -365,7 +371,8 @@ def test_composite_kernel_matches_plain(dev, tile, mode, transposed, mxu):
     flat = mode != 0
     before = dict(kernels.LAUNCHES)
     got = composite_tiles_v2(se, cfg, flat_mode=flat, transposed=transposed, mxu=mxu)
-    launches = 2 if tile > 256 else 1
+    launches = 2 if 22 < tile <= 32 or tile > 256 else 1
+    assert composite_launches(tile) == launches
     assert kernels.LAUNCHES == {**before, "composite": before["composite"] + launches}
     ref = composite_tiles_plain_v2(se, cfg, flat_mode=flat, mxu=mxu)
     assert float(got[..., 3].mean()) > 0.05
@@ -375,7 +382,7 @@ def test_composite_kernel_matches_plain(dev, tile, mode, transposed, mxu):
 
 
 @pytest.mark.parametrize("tile", [257, 320, 512])
-@pytest.mark.parametrize("mode,mxu", [(0, False), (0, True), (1, False)])
+@pytest.mark.parametrize("mode,mxu", [(0, False), (0, True), (1, False), (2, False)])
 def test_composite_kernel_tile_over_image_matches_plain(dev, tile, mode, mxu):
     """K3 at tiles over 256 px larger than the 256x192 image (one tile, whose
     pixels outside the image hold up its exit) vs its plain version."""
@@ -423,6 +430,61 @@ def test_composite_kernel_tile_closes_early_matches_plain(dev, mode, mxu):
     assert float((got - ref).abs().max()) <= K67_TOL
 
 
+def _sparse_long_pod(dev, comp):
+    """120,000 small faint splats (opacity 0.02-0.08): long runs of many
+    chunks a tile whose pixels stay open, so that the tiles walk on past
+    the chunk budget, as the sparse tiles of a capture do."""
+    g = make_random_scene(120_000, seed=6, extent=1.5, scale_range=(0.003, 0.01))
+    op = np.random.default_rng(2).uniform(0.02, 0.08, g.count).astype(np.float32)
+    g = dataclasses.replace(g, opacity=np.log(op / (1.0 - op)).astype(np.float32))
+    return pod_to_tensors(flat_pod_to_words(pack_gaussians(g, comp), comp), dev)
+
+
+@pytest.mark.parametrize("mode,mxu", [(0, False), (0, True), (1, False), (2, False)])
+@pytest.mark.parametrize("tile", [24, 28, 32])
+@pytest.mark.parametrize("case", ["outlast", "none"])
+def test_composite_kernel_budget_split_matches_plain(dev, case, tile, mode, mxu):
+    """K3's two passes at tiles of 23 to 32 px (pass 2 at one pixel a thread,
+    a warp on 8 x 4 pixels: at 24 px 2 bands of 288 threads, at 28 3 of
+    384, at 32 4 of 256) against the plain version, on a 330x250 image
+    whose edge tiles hold pixels past it: with
+    long sparse runs, where tiles outlast the chunk budget, and on a small
+    scene where none does (pass 2 takes an empty list). Inside
+    `trace.collect()` the device counter reads the tiles and chunks left
+    that the plain version's chunk walks hand on: the tiles that walk past
+    the budget; outside, nothing is counted. A second call is the first's
+    bit for bit, whatever order the tiles took the list in."""
+    comp = ALL_COMPRESSIONS[5]
+    w, h = 330, 250
+    pod = _sparse_long_pod(dev, comp) if case == "outlast" else _pod(comp, 1500, dev, seed=7)
+    cfg = TileConfig(w, h, tile=tile, max_dup=4)
+    view, proj = _camera(w, h, pos=(0.2, 0.3, -3.5))
+    se = build_sorted_entries_fused(pod, comp, cfg, view, proj, EYE, display_mode=mode)
+    flat = mode != 0
+    work = {}
+    ref = composite_tiles_plain_v2(se, cfg, flat_mode=flat, stats=work, mxu=mxu)
+    budget = composite_budget()
+    starts = se.tile_starts.long().cpu()
+    ends = starts + se.tile_counts.long().cpu()
+    n_chunks = torch.where(ends > starts, (ends + 127) // 128 - starts // 128, 0)
+    out = work["walked"] > budget
+    if case == "outlast":
+        assert int(out.sum()) >= 4 and int(work["walked"].max()) >= 2 * budget
+    else:
+        assert not bool(out.any())
+    before = dict(kernels.LAUNCHES)
+    trace.reset()
+    with trace.collect():
+        got = composite_tiles_v2(se, cfg, flat_mode=flat, mxu=mxu)
+    assert trace.k3_resumed() == (int(out.sum()), int((n_chunks[out] - budget).sum()))
+    trace.reset()
+    assert kernels.LAUNCHES == {**before, "composite": before["composite"] + 2}
+    assert float(got[..., 3].mean()) > 0.05
+    assert float((got - ref).abs().max()) <= K67_TOL
+    assert torch.equal(got, composite_tiles_v2(se, cfg, flat_mode=flat, mxu=mxu))
+    assert trace.k3_resumed() is None
+
+
 def test_wrappers_reject_bad_inputs(dev):
     comp = ALL_COMPRESSIONS[5]
     pod = _pod(comp, 1000, dev)
@@ -450,7 +512,7 @@ def test_viewer_on_card_matches_cpu(dev):
         [math.sin(yaw), 0.3, math.cos(yaw)], np.float32))
     kernels.reset_launch_counts()
     got = Viewer(g, 256, 256, max_dup=16, device=dev).render(cam)
-    assert kernels.LAUNCHES == _only(fused=1, sort=1, composite=1)
+    assert kernels.LAUNCHES == _only(fused=1, sort=1, composite=composite_launches(32))
     ref = Viewer(g, 256, 256, max_dup=16, device="cpu").render(cam)
     # CPU and card transcendentals may move a depth key by one step, which
     # can reorder near-ties: hold the two to the golden gate.
@@ -499,7 +561,7 @@ def test_session_masked_frame_on_card_matches_cpu(dev):
         out.append((img, s.viewer.models["golden.ply"].buffers.download_mask(),
                     s.measurement.hit_pairs[0].hits[0].pos, launches, hit_launches))
     (img_k, bits_k, hit_k, launches, hit_launches), (img_c, bits_c, hit_c, _, _) = out
-    assert launches == _only(fused=1, sort=1, composite=1, overlay=1)
+    assert launches == _only(fused=1, sort=1, composite=composite_launches(32), overlay=1)
     assert hit_launches == _only(geometry=1)
     assert np.array_equal(bits_k, bits_c) and 0.05 < bits_k.mean() < 0.95
     assert_golden_close(_u8(img_k), _u8(img_c))
@@ -526,7 +588,7 @@ def test_gated_viewer_on_card_matches_cpu(dev):
         kernels.reset_launch_counts()
         imgs.append(v.render(cam).cpu())
         if device == dev:
-            assert kernels.LAUNCHES == _only(fused=1, sort=1, composite=1)
+            assert kernels.LAUNCHES == _only(fused=1, sort=1, composite=composite_launches(32))
     assert_golden_close(_u8(imgs[0]), _u8(imgs[1]))
 
 
@@ -789,7 +851,7 @@ def test_viewer_server_frame_jpeg_on_card(dev):
     kernels.reset_launch_counts()
     with trace.collect():
         blob = vs.frame_jpeg(85)
-    assert dict(kernels.LAUNCHES) == _only(fused=1, sort=1, composite=1)
+    assert dict(kernels.LAUNCHES) == _only(fused=1, sort=1, composite=composite_launches(32))
     assert set(vs.frame_ms) == {"update", "device", "copy", "host"}
     kernels.reset_launch_counts()
     assert vs.frame_jpeg(85) is blob and dict(kernels.LAUNCHES) == _only()
@@ -963,5 +1025,5 @@ def test_session_overlays_on_card_match_cpu(dev):
     kernels.reset_launch_counts()
     frame = s.update()
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == _only(fused=1, sort=1, composite=1, overlay=1)
+    assert kernels.LAUNCHES == _only(fused=1, sort=1, composite=composite_launches(32), overlay=1)
     assert frame.shape == (120, 160, 3) and bool(torch.isfinite(frame).all())

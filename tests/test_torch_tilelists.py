@@ -149,7 +149,8 @@ def test_composite_plain_counts_rows_and_blends():
     opacity at every pixel): tile 0 has 3 rows at 0.99 and exits after its
     first row, having needed 2 entries a pixel (T 1, 0.01, then 1e-4 <=
     1/255); tile 1 has 200 entries at 0 (2 rows, all needed); tile 2 none;
-    tile 3 50 entries at 0.01 (1 row, all needed)."""
+    tile 3 50 entries at 0.01 (1 row, all needed). `walked`: each tile's
+    rows."""
     counts, row_starts, ops = [384, 200, 0, 50], [0, 3, 5, 5], [0.99, 0.0, 0.0, 0.01]
     ent = torch.zeros((len(PLANE_FIELDS), 6, 128))
     flat = ent.view(len(PLANE_FIELDS), -1)
@@ -160,7 +161,9 @@ def test_composite_plain_counts_rows_and_blends():
                          torch.tensor(counts, dtype=torch.int32))
     stats = {}
     img = composite_tiles_plain(planes, TileConfig(32, 32, tile=16, max_dup=4), stats=stats)
+    walked = stats.pop("walked")
     assert stats == {"rows": 1 + 2 + 0 + 1, "pairs": 256 * (2 + 200 + 50)}
+    assert walked.tolist() == [1, 2, 0, 1]
     assert bool((img[:16, :16, 3] == 1.0).all()) and not bool(img[:16, 16:].any())
 
 

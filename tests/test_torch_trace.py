@@ -5,11 +5,14 @@ for bit; under torch.profiler each span of a session frame is a profiler
 event of the same name, nested as the records are; self time, the cap on
 records, the frame ids on two threads, the host-read spans and the
 served frame's stages; `ops.kernels.LAUNCHES` is the module's launch
-counter. Imports no JAX."""
+counter; K3's handed-on counter and the benchmark's reader of it. Imports
+no JAX."""
 
+import importlib.util
 import io
 import threading
 import tracemalloc
+from pathlib import Path
 
 import pytest
 import torch
@@ -226,3 +229,45 @@ def test_launches_is_the_trace_launch_counter():
     assert trace.launches["sort"] >= 3
     kernels.reset_launch_counts()
     assert set(kernels.LAUNCHES.values()) == {0} and kernels.LAUNCHES is trace.launches
+
+
+def _benchmark_reader(name: str):
+    """The benchmark's reader of the per-layer metric `name`."""
+    path = Path(__file__).resolve().parents[1] / "portbench" / "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"reader_{name.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+def test_k3_handed_counter_and_its_reader(monkeypatch):
+    """K3's handed-on counter, here added into by hand on the CPU as the
+    card's first pass adds into it: no buffer while spans are off, one a
+    device while they record, read as (tiles, chunks) and dropped by
+    `reset`. Its reader, `k3_composite.resumed_tiles`, gives tiles a frame
+    over the recorded frames, and None without frames, without the counter
+    (a frame with no K3) or without `k3_resumed` (a port that lacks it)."""
+    read = _benchmark_reader("k3_composite.resumed_tiles")
+    trace.reset()
+    assert trace.k3_handed("cpu") is None and trace.k3_resumed() is None
+    assert read({}) is None
+    with trace.collect():
+        for _ in range(4):
+            with trace.span("viewer.render"):
+                buf = trace.k3_handed("cpu")
+                buf += torch.tensor([3, 17])
+        assert trace.k3_handed(torch.device("cpu")) is buf
+        assert buf.dtype == torch.int64 and buf.shape == (2,)
+    assert trace.k3_handed("cpu") is None
+    assert trace.k3_resumed() == (12, 68)
+    assert read({}) == 3.0
+    monkeypatch.delattr(trace, "k3_resumed")
+    assert read({}) is None
+    monkeypatch.undo()
+    trace.reset()
+    assert trace.k3_resumed() is None and read({}) is None
+    with trace.collect():
+        with trace.span("viewer.render"):
+            pass
+    assert read({}) is None
+    trace.reset()

@@ -37,6 +37,26 @@
 // the image's edge need no saved state, since pass 2 has no exit test.
 // `scratch` (zeros, n_tiles * (1 + parts a tile) ints) holds c* of tile t at
 // [t] and c_p of part p of tile t at [n_tiles + t * parts + p].
+//
+// A tile of 23 to 32 px (the compositor K3 only) takes the same two passes
+// split another way, by a budget of chunks instead of into parts, so that
+// the few tiles whose walks outlast the rest are spread over several SMs:
+//   - pass 1 (kFirst, kBudget): the whole tile in one block, as kWhole, for
+//     at most `budget` chunks. A tile still open before chunk `budget` with
+//     chunks left stores every pixel's rgb sums and T in `state` (the pixels
+//     past the image's edge too: they hold up the exit test) and appends
+//     itself to the list in `scratch`, one atomic a tile (hand_on);
+//   - pass 2 (kResume, kBudget): as many clusters of 2-4 bands as the card
+//     holds at once, at one pixel a thread (tail_bands_for, place), each
+//     taking the listed tiles one at a time (take_listed): it resumes every
+//     pixel from its state at chunk `budget`, with the whole-tile exit test
+//     across the cluster, and stores 1 - T. The host never reads the list.
+// `scratch` (2 + n_tiles ints): [0] the tiles listed, [1] the next one a
+// pass-2 cluster takes (both zeroed before pass 1), then the tiles. The state
+// moves between the passes in f32, unchanged, and the exit test is the same
+// whole-tile test at the same chunk boundaries, so every pixel sees the same
+// operations in the same order as in one whole-tile walk, and the image is
+// that walk's bit for bit.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -55,9 +75,26 @@ constexpr int kPart = 32;            // side of a part of a tile over 256 px
 // for one cluster of the tile's blocks.
 constexpr int kErrNoCluster = -2;
 
-// A launch's pass: the whole tile in one block or cluster, or a part's first
-// walk and its resumption (above).
+// Pass 2 of a budgeted tile: one pixel a thread, each warp a block of
+// kWarpCols x kWarpRows pixels, in at most kMaxTailBands bands, one to every
+// whole kTailBandPixels pixels of the tile (so a block holds 8 warps or
+// more); budgeted are the tiles up to kMaxBudgetTile px that this spreads
+// over more than one block (from 23 px). Larger tiles run 4x the entries a
+// tile, so most of their walk would outlast the budget and run at one pixel
+// a thread, which costs more than it spreads (+27% at 64 px on a random
+// scene): they keep one launch.
+constexpr int kWarpCols = 8;
+constexpr int kWarpRows = 4;
+constexpr int kMaxTailBands = 4;
+constexpr int kTailBandPixels = 256;
+constexpr int kMaxBudgetTile = 32;
+
+// A launch's pass: the whole tile in one block or cluster, or a first walk
+// and its resumption (above).
 enum Pass { kWhole = 0, kFirst = 1, kResume = 2 };
+// How the two passes split a tile: into parts over 256 px, or by a budget of
+// chunks (above).
+enum Split { kParts = 0, kBudget = 1 };
 
 // Rows of one tile split into `bands` blocks of `rows` rows (the last band may
 // hold fewer), `threads` a block.
@@ -83,26 +120,55 @@ inline int instance_for(const Bands& b) {
 // Parts a side of a tile over kMaxClusterTile.
 inline int part_side(int tile) { return (tile + kPart - 1) / kPart; }
 
+// Pass 2's bands of a budgeted tile: `groups` warp blocks across the tile,
+// `rows` of them down each band (place).
+inline Bands tail_bands_for(int tile) {
+  Bands b;
+  b.groups = (tile + kWarpCols - 1) / kWarpCols;
+  b.bands = tile * tile / kTailBandPixels;
+  if (b.bands < 1) b.bands = 1;
+  if (b.bands > kMaxTailBands) b.bands = kMaxTailBands;
+  b.rows = ((tile + kWarpRows - 1) / kWarpRows + b.bands - 1) / b.bands;
+  b.threads = b.groups * 32 * b.rows;
+  return b;
+}
+
+inline bool budgeted(int tile) { return tile <= kMaxBudgetTile && tail_bands_for(tile).bands > 1; }
+
 // Where a block's thread works: tile t, the tile-local column of its first
 // pixel and its row; and, for the part passes, the tile-local origin of the
-// block's part. kPxT pixels a thread; `side`: parts a side (part passes).
+// block's part. kPxT pixels a thread; `side`: parts a side (part passes);
+// `listed`: the tile a budgeted pass 2 takes from the list. A budgeted pass 2
+// (one pixel a thread) gives each warp a block of 8 x 4 pixels, since a warp
+// walks every entry that reaches one of its pixels, and fewer reach some
+// pixel of a compact block than of a row of 32; its bands take the tile's
+// rows of blocks in turn (band r rows r, r + bands, ...), so that the rows
+// thick with entries fall to every band alike.
 struct Place {
   int t, lx0, ly, part_x, part_y;
 };
 
-template <int kPass, bool kCluster, int kPxT>
-__device__ __forceinline__ Place place(int tile, int bands, int band_rows, int side) {
+template <int kPass, int kSplit, bool kCluster, int kPxT>
+__device__ __forceinline__ Place place(int tile, int bands, int band_rows, int side, int listed) {
   Place p;
-  const int unit = kPass == kWhole ? tile : kPart;
+  const bool parts = kPass != kWhole && kSplit == kParts;
+  const int unit = parts ? kPart : tile;
   const int groups = (unit + kPxT - 1) / kPxT;
-  if (kPass == kWhole) {
-    p.t = kCluster ? (int)blockIdx.x / bands : (int)blockIdx.x;
+  if (!parts) {
+    p.t = kPass == kResume ? listed : kCluster ? (int)blockIdx.x / bands : (int)blockIdx.x;
     p.part_x = p.part_y = 0;
   } else {
     const int parts = side * side, part = (int)blockIdx.x % parts;
     p.t = (int)blockIdx.x / parts;
     p.part_x = part % side * kPart;
     p.part_y = part / side * kPart;
+  }
+  if (kPass == kResume && kSplit == kBudget) {
+    const int blocks = (tile + kWarpCols - 1) / kWarpCols, warp = (int)threadIdx.x / 32;
+    const int lane = (int)threadIdx.x % 32;
+    p.lx0 = warp % blocks * kWarpCols + lane % kWarpCols;
+    p.ly = (warp / blocks * bands + (int)blockIdx.x % bands) * kWarpRows + lane / kWarpCols;
+    return p;
   }
   p.lx0 = p.part_x + (int)threadIdx.x % groups * kPxT;
   p.ly = p.part_y + (kCluster ? (int)blockIdx.x % bands * band_rows : 0) +
@@ -126,6 +192,35 @@ __device__ __forceinline__ void record_exit(int* scratch, int t, int side, int c
     scratch[n_tiles + blockIdx.x] = c;
     atomicMax(&scratch[t], c);
   }
+}
+
+// Budgeted pass 1: tile t outlasted the budget with `chunks` chunks left; it
+// goes on the list, and into `handed` (tiles, chunks; NULL: not counted).
+__device__ __forceinline__ void hand_on(int* list, unsigned long long* handed, int t,
+                                        int chunks) {
+  if (threadIdx.x == 0) {
+    list[2 + atomicAdd(&list[0], 1)] = t;
+    if (handed != nullptr) {
+      atomicAdd(&handed[0], 1ull);
+      atomicAdd(&handed[1], (unsigned long long)chunks);
+    }
+  }
+}
+
+// Budgeted pass 2: the next listed tile for this block's cluster (the same
+// for each of its blocks), or -1 once the list is taken. The cluster's block
+// 0 takes it and writes it into every block's `slot` before the cluster
+// barrier, so no block reads a peer's shared memory after the barrier (a
+// peer may have left).
+__device__ __forceinline__ int take_listed(int* list, int* slot) {
+  cg::cluster_group cluster = cg::this_cluster();
+  if (cluster.block_rank() == 0 && threadIdx.x == 0) {
+    const int k = atomicAdd(&list[1], 1);
+    const int t = k < list[0] ? list[2 + k] : -1;
+    for (unsigned r = 0; r < cluster.num_blocks(); ++r) *cluster.map_shared_rank(slot, r) = t;
+  }
+  cluster.sync();
+  return *slot;
 }
 
 // True while any pixel of the whole tile is open. `open`: this thread's
@@ -178,15 +273,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Launch `kernel` over n_tiles * b.bands blocks of b.threads, as clusters of
-// b.bands blocks when b.bands > 1. Returns a cudaError_t, or kErrNoCluster.
+// Launch `kernel` as clusters of b.bands > 1 blocks of b.threads: one a tile,
+// or (`resident`: a budgeted pass 2, whose clusters take their tiles from
+// the list) no more than the card holds at once. Returns a cudaError_t, or
+// kErrNoCluster.
 template <typename... Params, typename... Args>
-int launch(void (*kernel)(Params...), int n_tiles, const Bands& b, cudaStream_t st,
-           Args... args) {
-  if (b.bands == 1) {
-    kernel<<<n_tiles, b.threads, 0, st>>>(args...);
-    return (int)cudaGetLastError();
-  }
+int launch_clusters(void (*kernel)(Params...), int n_tiles, const Bands& b, bool resident,
+                    cudaStream_t st, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)n_tiles * (unsigned)b.bands);
   cfg.blockDim = dim3((unsigned)b.threads);
@@ -208,9 +301,22 @@ int launch(void (*kernel)(Params...), int n_tiles, const Bands& b, cudaStream_t 
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (err != cudaSuccess) return (int)err;
   if (clusters == 0) return kErrNoCluster;
+  if (resident && clusters < n_tiles) cfg.gridDim = dim3((unsigned)clusters * (unsigned)b.bands);
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Launch `kernel` over n_tiles * b.bands blocks of b.threads, as clusters of
+// b.bands blocks when b.bands > 1. Returns a cudaError_t, or kErrNoCluster.
+template <typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), int n_tiles, const Bands& b, cudaStream_t st,
+           Args... args) {
+  if (b.bands == 1) {
+    kernel<<<n_tiles, b.threads, 0, st>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  return launch_clusters(kernel, n_tiles, b, false, st, args...);
 }
 
 // A tile over kMaxClusterTile: pass 1 (`first`), then pass 2 (`resume`), each

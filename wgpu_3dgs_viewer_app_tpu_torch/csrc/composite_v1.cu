@@ -89,7 +89,8 @@ composite_v1_kernel(const float* __restrict__ ent, long long plane_stride,
   __shared__ float4 s_box[2][kRow], s_a[2][kRow], s_b[2][kRow];
   __shared__ int s_open[2];
 
-  const gs_tiles::Place pl = gs_tiles::place<kPass, kCluster, kPxT>(tile, bands, band_rows, side);
+  const gs_tiles::Place pl =
+      gs_tiles::place<kPass, gs_tiles::kParts, kCluster, kPxT>(tile, bands, band_rows, side, 0);
   const int t = pl.t;
   const int ox = (t % tiles_x) * tile, oy = (t / tiles_x) * tile;
   const int x0 = ox + pl.lx0, y = oy + pl.ly;

@@ -20,7 +20,13 @@ Both CUDA compositors take any tile: up to 64 px one block a tile, up to
 256 a thread block cluster of row bands, and over 256 parts of 32 px in two
 launches (each part walks until its own pixels close and records that
 chunk; then every part resumes to the tile's last such chunk), all of which
-keep the reference's whole-tile exit test (`csrc/composite.cuh`).
+keep the reference's whole-tile exit test (`csrc/composite.cuh`). K3 also
+splits tiles of 23 to 32 px into two launches: every tile walks at most a
+budget of chunks in one block, and the tiles still open with chunks left
+then resume at one pixel a thread across a cluster of blocks on several
+SMs, bit for bit the one-block walk; while spans record, the tiles and
+chunks its first launch hands on are counted on the device
+(`utils/trace.py::k3_handed`).
 
 `composite_tiles` is the v1 compositor over the unquantized `EntryPlanes`
 (the JAX `composite_tiles`): kernel K6 (`csrc/composite_v1.cu`) on CUDA
@@ -50,6 +56,11 @@ _TILES_PER_STEP = 256
 # (csrc/composite.cuh: kMaxClusterTile, kPart).
 _MAX_CLUSTER_TILE = 256
 _PART = 32
+# Tiles up to this many px whose pass 2 has more than one band of this many
+# pixels run K3 in two launches split by a chunk budget (csrc/composite.cuh:
+# budgeted, kMaxBudgetTile, kTailBandPixels): 23 to 32 px.
+_MAX_BUDGET_TILE = 32
+_TAIL_BAND_PIXELS = 256
 # The launchers' answer when cudaOccupancyMaxActiveClusters finds no place on
 # the card for one tile's cluster of blocks (csrc/composite.cuh).
 _NO_CLUSTER = -2
@@ -91,14 +102,15 @@ def _chunk_loop(cfg: TileConfig, n_chunks: torch.Tensor, blend,
     (1 - alpha) into T. With `stats`, counts in stats["pairs"] the (pixel
     inside the image, live entry) blends this data needs: for each pixel,
     its live entries up to and including the one that brings its own T to
-    <= T_EPS; and in stats["rows"] the chunks the tiles read."""
+    <= T_EPS; in stats["rows"] the chunks the tiles read; and in
+    stats["walked"] the chunks each tile read ((n_tiles,) int64)."""
     p = cfg.tile * cfg.tile
     dev = n_chunks.device
     t_all = torch.ones((cfg.n_tiles, p, 1), device=dev)
     rgb_all = torch.zeros((cfg.n_tiles, p, 3), device=dev)
     if stats is not None:
         pairs = torch.zeros((), dtype=torch.int64, device=dev)
-        rows = 0
+        walked = torch.zeros(cfg.n_tiles, dtype=torch.int64, device=dev)
         in_image = _in_image(cfg, torch.arange(p, device=dev))
     max_chunks = int(n_chunks.max()) if cfg.n_tiles else 0
     for c in range(max_chunks):
@@ -115,9 +127,10 @@ def _chunk_loop(cfg: TileConfig, n_chunks: torch.Tensor, blend,
             rgb_all[idx] = rgb_all[idx] + t * sums
             t_all[idx] = t * incl[..., -1:]
         if stats is not None:
-            rows += active.numel()
+            walked[active] += 1
     if stats is not None:
-        stats["pairs"], stats["rows"] = int(pairs), rows
+        stats["pairs"], stats["rows"] = int(pairs), int(walked.sum())
+        stats["walked"] = walked.cpu()
     return _tiles_to_image(torch.cat([rgb_all, 1.0 - t_all], dim=-1), cfg)
 
 
@@ -165,6 +178,26 @@ def _part_scratch(cfg: TileConfig, device) -> torch.Tensor | None:
         return None
     parts = (-(-cfg.tile // _PART)) ** 2
     return torch.zeros(cfg.n_tiles * (1 + parts), dtype=torch.int32, device=device)
+
+
+def _budgeted(tile: int) -> bool:
+    """K3 splits the tile's walk by a chunk budget: a first pass over every
+    tile, then the tiles that outlast it resumed across a cluster of blocks
+    (`csrc/composite.cuh`: budgeted)."""
+    return tile <= _MAX_BUDGET_TILE and tile * tile // _TAIL_BAND_PIXELS > 1
+
+
+def composite_launches(tile: int) -> int:
+    """K3's launches a call at `tile` (`LAUNCHES["composite"]`): two where a
+    tile's walk is split (tiles of 23 to 32 px, and over 256), else one."""
+    return 2 if _budgeted(tile) or tile > _MAX_CLUSTER_TILE else 1
+
+
+def composite_budget() -> int:
+    """The chunks a budgeted tile walks in K3's first pass before it is
+    handed to the second (`csrc/composite_v2.cu::kChunkBudget`; builds the
+    kernels at first use)."""
+    return kernels.library().gs_composite_v2_budget()
 
 
 def _check_launch(rc: int, name: str, cfg: TileConfig) -> None:
@@ -292,14 +325,25 @@ def _composite_tiles_cuda(entries: SortedEntries, cfg: TileConfig, flat_mode: bo
     kernels.require(ent, "entries", torch.int32, (ent.shape[0], 4))
     kernels.require(entries.tile_starts, "tile_starts", torch.int32, (cfg.n_tiles,), ent.device)
     kernels.require(entries.tile_counts, "tile_counts", torch.int32, (cfg.n_tiles,), ent.device)
-    out = torch.empty((cfg.height, cfg.width, 4), dtype=torch.float32, device=ent.device)
-    scratch = _part_scratch(cfg, ent.device)
+    dev = ent.device
+    out = torch.empty((cfg.height, cfg.width, 4), dtype=torch.float32, device=dev)
+    state = handed = None
+    if _budgeted(cfg.tile):
+        # The list of tiles pass 1 hands on (its counts zeroed by the
+        # launcher) and their pixels' state.
+        scratch = torch.empty(2 + cfg.n_tiles, dtype=torch.int32, device=dev)
+        state = torch.empty((cfg.n_tiles * cfg.tile * cfg.tile, 4), dtype=torch.float32,
+                            device=dev)
+        handed = trace.k3_handed(dev)
+    else:
+        scratch = _part_scratch(cfg, dev)
     p = kernels.ptr
     _check_launch(lib.gs_composite_v2(p(ent), p(entries.tile_starts), p(entries.tile_counts),
                                       cfg.n_tiles, cfg.tile, cfg.tiles_x, cfg.width, cfg.height,
                                       int(flat_mode), int(mxu and not flat_mode), p(scratch),
-                                      p(out), kernels.stream()), "gs_composite_v2", cfg)
-    kernels.LAUNCHES["composite"] += 1 if scratch is None else 2
+                                      p(state), p(handed), p(out), kernels.stream()),
+                  "gs_composite_v2", cfg)
+    kernels.LAUNCHES["composite"] += composite_launches(cfg.tile)
     return out
 
 

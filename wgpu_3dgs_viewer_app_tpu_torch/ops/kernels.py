@@ -61,7 +61,8 @@ _SIGNATURES = {
     "gs_sort_upfront": [_P, ctypes.c_longlong, _P, _P],
     "gs_sort_onesweep": [_P, ctypes.c_longlong, _P, _P, ctypes.c_longlong, _P, _P, _P, _P],
     "gs_sort_tile_edges": [_P, _I, _I, _I, _P, _P],
-    "gs_composite_v2": [_P, _P, _P] + [_I] * 7 + [_P, _P, _P],
+    "gs_composite_v2": [_P, _P, _P] + [_I] * 7 + [_P] * 5,
+    "gs_composite_v2_budget": [],
     "gs_composite_v1": [_P, ctypes.c_longlong, _P, _P] + [_I] * 6 + [_P, _P, _P],
     # K6 with its pixels a thread forced, for measurement only (scripts/ab_port_kernels.py).
     "gs_composite_v1_px": [_P, ctypes.c_longlong, _P, _P] + [_I] * 7 + [_P, _P, _P],

@@ -22,8 +22,14 @@ Records stay in memory, at most `CAP` of them; spans past the cap are
 counted in `dropped`. There is no exporter: a reader takes `records`
 in-process (`frame_roots`, `self_ns`) and `reset()` clears them.
 
-The one counter, always on, is `launches`: each kernel wrapper's launches
-(`ops.kernels.LAUNCHES` is this dict), a plain integer increment.
+Two counters. `launches`, always on: each kernel wrapper's launches
+(`ops.kernels.LAUNCHES` is this dict), a plain integer increment. And
+`k3_handed`, on the device and only while spans record: the tiles the
+compositor K3's first pass hands to its second, and their chunks left, a
+buffer of two int64 the kernel adds into (the wrapper passes none while
+spans are off, so nothing is counted). Nothing reads it inside a frame:
+`k3_resumed()` copies it to the host when a reader asks, after the window,
+and `reset()` drops it.
 Every point of a frame path where the host waits for the device (a
 device-to-host read, or a copy from pageable host memory, which torch ends
 with a stream sync) goes through `host_read`, which spans the wait as
@@ -37,6 +43,7 @@ import contextlib
 import threading
 import time
 
+import torch
 from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import _profiler_enabled
 
@@ -48,6 +55,9 @@ records: list = []
 dropped = 0
 launches = {"fused": 0, "sort": 0, "composite": 0, "geometry": 0, "enum_pack": 0,
             "composite_v1": 0, "preprocess": 0, "overlay": 0}
+
+# K3's handed-on tiles and chunks while spans record, by device (`k3_handed`).
+_k3: dict = {}
 
 _collecting = 0
 _local = threading.local()   # .stack: [(record index, frame index)] of the open spans
@@ -139,12 +149,40 @@ def host_read(cuda: bool = True):
     return span("host.read") if cuda else _NULL
 
 
+def k3_handed(device):
+    """While spans record: the (2,) int64 buffer on `device` into which the
+    compositor K3's first pass adds the tiles it hands to its second and
+    their chunks left (made at first use, zeros); else None."""
+    if not (_collecting or _profiler_enabled()):
+        return None
+    device = torch.device(device)
+    with _lock:
+        buf = _k3.get(device)
+        if buf is None:
+            buf = _k3[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return buf
+
+
+def k3_resumed():
+    """(tiles, chunks) that K3's first pass handed on while spans recorded
+    since the last `reset()`, over every device (a copy to the host, which
+    waits for the device: read it after the frames); None where no K3 ran
+    while spans recorded."""
+    with _lock:
+        bufs = list(_k3.values())
+    if not bufs:
+        return None
+    tiles, chunks = (int(v) for v in sum(b.cpu() for b in bufs))
+    return tiles, chunks
+
+
 def reset() -> None:
-    """Clear the records (call it with no span open); the launch counters
-    are `ops.kernels`'."""
+    """Clear the records and K3's handed-on count (call it with no span
+    open); the launch counters are `ops.kernels`'."""
     global dropped
     del records[:]
     dropped = 0
+    _k3.clear()
 
 
 def frame_roots(recs: list) -> list:
