@@ -834,6 +834,53 @@ def test_traced_orbit_frame_counts_the_syncs_sync_debug_finds(dev):
     assert len(reads) == len(syncs)
 
 
+
+def test_brush_frames_count_the_syncs_sync_debug_finds(dev):
+    """The brush's pointer events and releases on a session on the card, in
+    texture and in immediate mode, each with the frame that shows it: torch's
+    sync debug mode reports exactly the frame's two synchronizing operations
+    (K2's live count, the background's upload), each a `host.read` span, and
+    none in the paint, the resolve (K4, the texture's gather, the combine)
+    or the immediate region test."""
+    import warnings
+
+    g = make_random_scene(50_000, seed=4, extent=1.5, scale_range=(0.005, 0.03))
+    buf = io.BytesIO()
+    write_ply(buf, g)
+    s = GaussianSplattingSession(width=320, height=240, device=dev)
+    s.open_model("m.ply", io.BytesIO(buf.getvalue()))
+    while s.loader is not None:
+        s._drain_loader()
+    s.evaluate_mask(None)
+    s.action = Action.SELECTION
+    s.selection.method = SelectionMethod.BRUSH
+    s.update()
+    torch.cuda.synchronize()
+    events = []
+    for texture, op in ((True, QuerySelectionOp.SET), (False, QuerySelectionOp.ADD)):
+        events += [lambda t=texture, o=op: (s.toolset.set_use_texture(t),
+                                            s.toolset.start(QueryToolset.BRUSH, o, (100, 80))),
+                   lambda: s.toolset.update_pos((130, 95)),
+                   lambda: (s.toolset.update_pos((150, 120)), s.end_selection_gesture())]
+    for event in events:
+        trace.reset()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with trace.collect():
+                    event()
+                    s.update()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+        recs = trace.records
+        reads = [recs[r.parent].name for r in recs if r.name == "host.read"]
+        assert reads == ["k2.sort", "k3.composite"] and len(syncs) == len(reads)
+    assert int(s.viewer.models["m.ply"].buffers.selection.sum()) > 0
+    trace.reset()
+
 def test_viewer_server_frame_jpeg_on_card(dev):
     """`frame_jpeg` on a session on the card: a dirty frame launches K1, K2
     and K3 once each and serves the encoding of the frame `update()` gives

@@ -5,8 +5,9 @@ for bit; under torch.profiler each span of a session frame is a profiler
 event of the same name, nested as the records are; self time, the cap on
 records, the frame ids on two threads, the host-read spans and the
 served frame's stages; `ops.kernels.LAUNCHES` is the module's launch
-counter; K3's handed-on counter and the benchmark's reader of it. Imports
-no JAX."""
+counter; K3's handed-on counter and the benchmark's reader of it; the
+query spans of a brush event, its release and an immediate-mode frame, and
+the benchmark's readers of them and of K4's roofline. Imports no JAX."""
 
 import importlib.util
 import io
@@ -18,11 +19,12 @@ import pytest
 import torch
 
 import _torch_cpu  # noqa: F401  (one torch thread per test process)
-from wgpu_3dgs_viewer_app_tpu_torch.app import (GaussianSplattingSession, SceneCommand,
-                                                SceneCommandKind, ViewerServer)
+from wgpu_3dgs_viewer_app_tpu_torch.app import (Action, GaussianSplattingSession, SceneCommand,
+                                                SceneCommandKind, SelectionMethod, ViewerServer)
 from wgpu_3dgs_viewer_app_tpu_torch.data import make_random_scene, write_ply
 from wgpu_3dgs_viewer_app_tpu_torch.mask import MaskShape
 from wgpu_3dgs_viewer_app_tpu_torch.ops import kernels
+from wgpu_3dgs_viewer_app_tpu_torch.query import QuerySelectionOp, QueryToolset
 from wgpu_3dgs_viewer_app_tpu_torch.utils import trace
 from wgpu_3dgs_viewer_app_tpu_torch.viewer import Viewer
 
@@ -271,3 +273,93 @@ def test_k3_handed_counter_and_its_reader(monkeypatch):
             pass
     assert read({}) is None
     trace.reset()
+
+
+def _brush_session():
+    buf = io.BytesIO()
+    write_ply(buf, _scene())
+    s = GaussianSplattingSession(width=W, height=H, device="cpu")
+    s.open_model("m.ply", io.BytesIO(buf.getvalue()))
+    while s.loader is not None:
+        s._drain_loader()
+    s.action = Action.SELECTION
+    s.selection.method = SelectionMethod.BRUSH
+    s.toolset.update_brush_radius(6.0)
+    return s
+
+
+def test_query_spans_of_brush_events_and_releases():
+    """A texture-mode pointer event records `query.paint` (a root: the app
+    sends its events between frames); its release records `query.resolve`
+    with `query.geometry` (the camera and K4's wrapper) inside it; an
+    immediate-mode event's frame records `query.geometry` and then
+    `query.region` under `session.queries`."""
+    s = _brush_session()
+    c = (W / 2, H / 2)
+    trace.reset()
+    with trace.collect():
+        s.toolset.set_use_texture(True)
+        s.toolset.start(QueryToolset.BRUSH, QuerySelectionOp.SET, c)
+        s.toolset.update_pos((c[0] + 6, c[1] + 2))
+    assert [(r.name, r.parent) for r in trace.records] == [("query.paint", None)] * 2
+    trace.reset()
+    with trace.collect():
+        s.end_selection_gesture()
+    assert [(r.name, r.parent) for r in trace.records] == [("query.resolve", None),
+                                                            ("query.geometry", 0)]
+    assert int(s.viewer.models["m.ply"].buffers.selection.sum()) > 0
+    s.toolset.set_use_texture(False)
+    s.toolset.start(QueryToolset.BRUSH, QuerySelectionOp.ADD, c)
+    trace.reset()
+    with trace.collect():
+        s.update()
+    recs = trace.records
+    q = [r.name for r in recs].index("session.queries")
+    assert [(r.name, r.parent) for r in recs[q + 1:q + 3]] == [("query.geometry", q),
+                                                                ("query.region", q)]
+    assert recs[q].parent == 0 and recs[0].name == "session.update"
+    s.end_selection_gesture()
+    trace.reset()
+
+
+def test_query_readers_on_hand_built_records(monkeypatch):
+    """`query.paint_ms` (ms a frame of `query.paint`), `query.resolve_ms`
+    (ms a release: the `query.resolve` spans over their count) and
+    `k4_geometry.roofline_pct` (the work of the counted K4 launches,
+    `portbench/metrics/_k4_work.py`, against the stage's device time), and
+    None where what they read is missing."""
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1] / "portbench"))
+    paint, resolve = _benchmark_reader("query.paint_ms"), _benchmark_reader("query.resolve_ms")
+    R, MS = trace.Record, 1_000_000
+    recs = []
+    for k in range(4):      # four frames, each after two painted events
+        t0 = 20 * k * MS
+        recs += [R("query.paint", t0, t0 + MS // 4), R("query.paint", t0 + MS, t0 + 5 * MS // 4)]
+        if k in (1, 3):     # two releases, 1 and 2 ms
+            recs += [R("query.resolve", t0 + 2 * MS, t0 + (2 + k // 2 + 1) * MS),
+                     R("query.geometry", t0 + 2 * MS, t0 + 3 * MS)]
+            recs[-1].parent = len(recs) - 2
+        recs.append(R("session.update", t0 + 5 * MS, t0 + 15 * MS))
+        recs[-1].frame = len(recs) - 1
+    monkeypatch.setattr(trace, "records", recs)
+    assert paint({}) == pytest.approx(0.5)
+    assert resolve({}) == pytest.approx(1.5)
+    monkeypatch.setattr(trace, "records", [r for r in recs if r.name != "query.resolve"])
+    assert resolve({}) is None and paint({}) == pytest.approx(0.5)
+    monkeypatch.setattr(trace, "records", [])
+    assert paint({}) is None and resolve({}) is None
+
+    roof = _benchmark_reader("k4_geometry.roofline_pct")
+    peaks = {"hbm_bytes_per_s": 3.35e12, "f32_ops_per_s": 67e12}
+    ctx = {"trace": {"stage_s": {"k4_geometry": 35 * 40e-6}, "launched": {"geometry": 35}},
+           "info": {"splats": 2_000_000, "k4_cov3d": "half", "k4_masked": True},
+           "peaks": peaks}
+    # 2M splats x (12 + 12 + 4 + 1 read, 9 written) B = 76 MB a launch: 22.69 us of 40.
+    assert roof(ctx) == pytest.approx(100 * 76e6 / 3.35e12 / 40e-6)
+    single = dict(ctx, info={**ctx["info"], "k4_cov3d": "single", "k4_masked": False})
+    assert roof(single) == pytest.approx(100 * 2e6 * 49 / 3.35e12 / 40e-6)
+    for bad in ({**ctx, "trace": None}, {**ctx, "info": {}},
+                {**ctx, "trace": {**ctx["trace"], "short": {"fused": (1, 2)}}},
+                {**ctx, "trace": {"stage_s": {}, "launched": {"geometry": 35}}},
+                {**ctx, "trace": {**ctx["trace"], "launched": {"geometry": 0}}}):
+        assert roof(bad) is None

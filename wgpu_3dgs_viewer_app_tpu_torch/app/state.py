@@ -314,15 +314,16 @@ class GaussianSplattingSession:
         m = self._selected_model()
         if m is None or len(m.buffers) == 0:
             return None
-        self.viewer.update_camera(self.camera.control)
-        gt = self.gaussian_transform
-        b = m.buffers
-        edit = (b.edit_flags, b.edit_rgb, b.edit_params) if b.edit_flags is not None else None
-        return preprocess_geometry_fused(b.pod, self.compressions, self.viewer._view,
-                                         self.viewer._proj, m.transform.matrix(),
-                                         self.viewer.cfg.width, self.viewer.cfg.height,
-                                         size=gt.size, display_mode=int(gt.display_mode),
-                                         mask_bits=b.mask, edit=edit)
+        with trace.span("query.geometry"):
+            self.viewer.update_camera(self.camera.control)
+            gt = self.gaussian_transform
+            b = m.buffers
+            edit = (b.edit_flags, b.edit_rgb, b.edit_params) if b.edit_flags is not None else None
+            return preprocess_geometry_fused(b.pod, self.compressions, self.viewer._view,
+                                             self.viewer._proj, m.transform.matrix(),
+                                             self.viewer.cfg.width, self.viewer.cfg.height,
+                                             size=gt.size, display_mode=int(gt.display_mode),
+                                             mask_bits=b.mask, edit=edit)
 
     @staticmethod
     def _selection_bits(m) -> torch.Tensor:
@@ -342,10 +343,11 @@ class GaussianSplattingSession:
         pre = self._preprocess_selected()
         if pre is None:
             return
-        bits = self._selection_bits(m)
-        for pod in pods:
-            bits = apply_query_pod(pre, bits, pod)
-        m.buffers.set_selection(bits)
+        with trace.span("query.region"):
+            bits = self._selection_bits(m)
+            for pod in pods:
+                bits = apply_query_pod(pre, bits, pod)
+            m.buffers.set_selection(bits)
 
     def end_selection_gesture(self) -> None:
         """End the gesture; in texture mode resolve the painted texture."""
@@ -354,12 +356,13 @@ class GaussianSplattingSession:
         if result is None:
             return
         op, texture = result
-        m = self._selected_model()
-        pre = self._preprocess_selected()
-        if m is None or pre is None:
-            return
-        new_bits = sample_texture_at_centers(pre, texture)
-        m.buffers.set_selection(combine_selection(self._selection_bits(m), new_bits, op))
+        with trace.span("query.resolve"):
+            m = self._selected_model()
+            pre = self._preprocess_selected()
+            if m is None or pre is None:
+                return
+            new_bits = sample_texture_at_centers(pre, texture)
+            m.buffers.set_selection(combine_selection(self._selection_bits(m), new_bits, op))
 
     def locate_hit(self, pixel, pair_idx: int, hit_idx: int) -> bool:
         """Hit query at `pixel` -> the world position of hit `hit_idx` of

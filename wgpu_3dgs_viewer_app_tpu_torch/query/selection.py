@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..ops.preprocess import PreprocessOut, host_array
+from ..utils import trace
 from .pods import QueryBrushPod, QueryRectPod, QuerySelectionOp
 
 
@@ -154,14 +155,16 @@ class QueryToolset:
         if tool == self.BRUSH:
             self._stroke(self._last_pos, pos)
         else:
-            self.texture = _paint_rect(self._blank(), self._start_pos, pos)
+            with trace.span("query.paint"):
+                self.texture = _paint_rect(self._blank(), self._start_pos, pos)
             if not self.use_texture:
                 self._pending = [QueryRectPod(tuple(self._start_pos), tuple(pos), op)]
         self._last_pos = pos
 
     def _stroke(self, a, b) -> None:
         _, op = self._active
-        _paint_segment(self.texture, a, b, self.brush_radius)
+        with trace.span("query.paint"):
+            _paint_segment(self.texture, a, b, self.brush_radius)
         if not self.use_texture:
             # Within one gesture only the first stroke carries the gesture
             # op; later strokes extend it (a SET drag keeps its own path).
