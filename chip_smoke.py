@@ -636,7 +636,7 @@ def phase_kernels(g1, cam1, g3, cam3, device) -> dict:
     keys_live, ent_live = keys[live], ent_k[live]
     del keys, live
     n_live, e = se_k.n_valid, ent_k.shape[0]
-    b_ms, b_by = bound(nbytes(ent_k) + nbytes(se_k.entries, se_k.tile_starts, se_k.tile_counts),
+    b_ms, b_by = bound(nbytes(ent_k) + nbytes(se_k.live(), se_k.tile_starts, se_k.tile_counts),
                        K2_OPS_LIVE * n_live + e)
     rec["sort"] = {"max_abs_err": 0,
                    "ms": cuda_ms(lambda: sort_entries(ent_k, cfg), 20),
@@ -1648,7 +1648,7 @@ def phase_config2(models: list, device, smi: str, rec: dict) -> dict:
     # tile ranges.
     compare_sorted(se, sort_entries_plain(entries, cfg_m), stable=True)
     rec["sort"]["config2_merged_max_abs_err"] = 0
-    keys = se.entries[:, 0].to(torch.int64) & 0xFFFFFFFF
+    keys = se.live()[:, 0].to(torch.int64) & 0xFFFFFFFF
     tile = keys >> cfg_m._tile_shift
     rank = (keys >> cfg_m._rank_shift) & ((1 << cfg_m.model_bits) - 1)
     depth = (keys >> 8) & ((1 << cfg_m.v2_depth_bits) - 1)

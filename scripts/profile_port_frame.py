@@ -78,8 +78,6 @@ def tile_walk(se, cfg, top: int = 6) -> dict:
     first pass and, where there is one, its second), and the tiles and
     chunks the first pass hands on (`trace.k3_resumed`; None at tiles that
     K3 does not split by a budget). Prints one line; returns the numbers."""
-    import dataclasses
-
     import torch
 
     import chip_smoke
@@ -89,13 +87,13 @@ def tile_walk(se, cfg, top: int = 6) -> dict:
     def ms(s, reps):
         return chip_smoke.cuda_ms(lambda: composite_tiles_v2(s, cfg), reps)
 
-    zero = dataclasses.replace(se, tile_counts=se.tile_counts.new_zeros(se.tile_counts.shape))
+    zero = se.ranged(se.tile_starts, se.tile_counts.new_zeros(se.tile_counts.shape))
     whole, empty = ms(se, 20), ms(zero, 20)
     alone = []
     for t in range(cfg.n_tiles):
         counts = zero.tile_counts.clone()
         counts[t] = se.tile_counts[t]
-        alone.append(ms(dataclasses.replace(se, tile_counts=counts), 3) - empty)
+        alone.append(ms(se.ranged(se.tile_starts, counts), 3) - empty)
     work = {}
     composite_tiles_plain_v2(se, cfg, stats=work)
     walked = work["walked"].tolist()

@@ -78,7 +78,7 @@ def sorted_entries_to_jax(se: SortedEntries) -> tuple:
     """Port SortedEntries -> (planes (R, 4, 128) u32, tile_starts, tile_counts,
     n_valid) numpy, the fields of the JAX SortedEntries. Entries pad with
     zeros to a multiple of 128 (never inside any tile range)."""
-    ent = se.entries.cpu().numpy().view(np.uint32)
+    ent = se.live().cpu().numpy().view(np.uint32)
     ent = np.concatenate([ent, np.zeros(((-len(ent)) % ROW, 4), np.uint32)])
     planes = np.ascontiguousarray(ent.reshape(-1, ROW, 4).transpose(0, 2, 1))
     return (planes, se.tile_starts.cpu().numpy().astype(np.int32),

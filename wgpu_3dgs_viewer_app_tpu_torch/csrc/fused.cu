@@ -46,13 +46,23 @@ using namespace gs;
 
 namespace {
 
+// The frame's scalars of the launch, copied in on the stream before it from
+// the FrameRecord the launcher is given (device memory: a row of the viewer's
+// parameter block). A launch captured in a CUDA graph keeps its arguments,
+// not the frame's values; the copy is a node of the graph too, so each
+// replay takes the frame's values. In the constant bank, as arguments were,
+// the scalars cost the arithmetic no instruction of their own. One record
+// serves every launch, so K1 is launched on one stream at a time.
+__constant__ FrameRecord c_frame;
+
 template <int SH, int COV, bool GATED>
 __global__ void __launch_bounds__(kEnumThreads)
-fused_frontend_kernel(const FrameParams fp, const IntParams ip,
-                      const float* __restrict__ pos, const uint32_t* __restrict__ color0,
-                      const void* __restrict__ cov3d, const void* __restrict__ sh,
-                      const float* __restrict__ sh_mn, const float* __restrict__ sh_span,
-                      const Gates gates, uint4* __restrict__ out) {
+fused_frontend_kernel(const IntParams ip, const float* __restrict__ pos,
+                      const uint32_t* __restrict__ color0, const void* __restrict__ cov3d,
+                      const void* __restrict__ sh, const float* __restrict__ sh_mn,
+                      const float* __restrict__ sh_span, const Gates gates,
+                      uint4* __restrict__ out) {
+  const FrameParams& fp = c_frame.fp;
   const int64_t n = ip.n;
   const int64_t first = (int64_t)blockIdx.x * blockDim.x;
   const int nb = (int)(n - first < (int64_t)blockDim.x ? n - first : (int64_t)blockDim.x);
@@ -76,20 +86,20 @@ fused_frontend_kernel(const FrameParams fp, const IntParams ip,
 
   // --- gates and edits, then the opacity-aware extent and cull ---
   bool gate_ok = true;
-  if (GATED) gate_ok = apply_gates(fp, ip, gw, col[0], col[1], col[2], alpha);
+  if (GATED) gate_ok = apply_gates(fp, ip, c_frame.sel_flags, gw, col[0], col[1], col[2], alpha);
   const float radius = live_radius(ip.display_mode, sg.radius, alpha);
   const bool valid = splat_valid(fp, sg, radius, alpha, gate_ok);
   if (!valid) alpha = 0.0f;
 
   // --- enumerate up to max_dup tiles centre-out and pack (enumerate.cuh) ---
   const EnumParams ep{ip.tile, ip.tiles_x, ip.tiles_y, ip.max_dup, ip.tile_shift,
-                      ip.rank_shift, ip.model_rank, fp.depth_scale, fp.depth_qmax};
+                      ip.rank_shift, c_frame.model_rank, fp.depth_scale, fp.depth_qmax};
   enumerate_pack(ep, sg.px, sg.py, sg.depth, radius, sg.ca, sg.cb, sg.cc, col[0], col[1], col[2],
                  alpha, valid, first, nb, out);
 }
 
 template <int SH, int COV>
-void launch(const FrameParams& fp, const IntParams& ip, const void* pos, const void* color0,
+void launch(const IntParams& ip, const void* pos, const void* color0,
             const void* cov3d, const void* sh, const void* sh_mn, const void* sh_span,
             const Gates& gates, void* out, cudaStream_t stream) {
   const int threads = kEnumThreads;
@@ -102,30 +112,35 @@ void launch(const FrameParams& fp, const IntParams& ip, const void* pos, const v
   uint4* o = static_cast<uint4*>(out);
   if (ip.gates)
     fused_frontend_kernel<SH, COV, true><<<blocks, threads, smem, stream>>>(
-        fp, ip, p, c0, cov3d, sh, mn, span, gates, o);
+        ip, p, c0, cov3d, sh, mn, span, gates, o);
   else
     fused_frontend_kernel<SH, COV, false><<<blocks, threads, smem, stream>>>(
-        fp, ip, p, c0, cov3d, sh, mn, span, gates, o);
+        ip, p, c0, cov3d, sh, mn, span, gates, o);
 }
 
 }  // namespace
 
-extern "C" int gs_fused_frontend(const float* frame, const int* iparams, const void* pos,
+// `record`: a FrameRecord in device memory (the frame floats, the selection
+// edit's flags, the model rank), copied into the kernel's constant record on
+// `stream` before the launch; `iparams`: the host's IntParams, whose
+// sel_flags and model_rank the record's take the place of.
+extern "C" int gs_fused_frontend(const void* record, const int* iparams, const void* pos,
                                  const void* color0, const void* cov3d, const void* sh,
                                  const void* sh_mn, const void* sh_span, const void* mask,
                                  const void* sel, const void* eflags, const void* ergb,
                                  const void* eparams, void* out, void* stream) {
-  FrameParams fp;
   IntParams ip;
-  memcpy(&fp, frame, sizeof(fp));
   memcpy(&ip, iparams, sizeof(ip));
   if (ip.n <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemcpyToSymbolAsync(c_frame, record, sizeof(FrameRecord), 0,
+                                                  cudaMemcpyDefault, st);
+  if (err != cudaSuccess) return (int)err;
   const Gates gates{static_cast<const uint8_t*>(mask), static_cast<const uint8_t*>(sel),
                     static_cast<const uint32_t*>(eflags), static_cast<const float*>(ergb),
                     static_cast<const float*>(eparams)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define GS_CASE(S, C) \
-  case S * 2 + C: launch<S, C>(fp, ip, pos, color0, cov3d, sh, sh_mn, sh_span, gates, out, st); break;
+  case S * 2 + C: launch<S, C>(ip, pos, color0, cov3d, sh, sh_mn, sh_span, gates, out, st); break;
   switch (ip.sh_comp * 2 + ip.cov_comp) {
     GS_CASE(SH_SINGLE, COV_SINGLE)
     GS_CASE(SH_SINGLE, COV_HALF)
@@ -140,4 +155,26 @@ extern "C" int gs_fused_frontend(const float* frame, const int* iparams, const v
   }
 #undef GS_CASE
   return (int)cudaGetLastError();
+}
+
+// An asynchronous copy of `bytes` on `stream` (the direction from the
+// pointers), for the viewer's parameter block: pinned host memory to the
+// device, captured in a CUDA graph as its first node.
+extern "C" int gs_copy_async(void* dst, const void* src, long long bytes, void* stream) {
+  return (int)cudaMemcpyAsync(dst, src, (size_t)bytes, cudaMemcpyDefault,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Record `event` on `stream`; inside a stream capture as an external event,
+// which makes it an event record node of the graph, so that each replay
+// records it where it stands (after the parameter block's copy).
+extern "C" int gs_record_event(void* event, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaStreamCaptureStatus capture = cudaStreamCaptureStatusNone;
+  const cudaError_t err = cudaStreamIsCapturing(st, &capture);
+  if (err != cudaSuccess) return (int)err;
+  cudaEvent_t ev = static_cast<cudaEvent_t>(event);
+  return (int)(capture == cudaStreamCaptureStatusActive
+                   ? cudaEventRecordWithFlags(ev, st, cudaEventRecordExternal)
+                   : cudaEventRecord(ev, st));
 }

@@ -78,7 +78,7 @@ geometry_kernel(const FrameParams fp, const IntParams ip, const float* __restric
   bool gate_ok = true;
   if constexpr (GATED) {
     if constexpr (SH == kNoSh) gw = load_gates(ip, gates, s);
-    gate_ok = apply_gates(fp, ip, gw, col[0], col[1], col[2], alpha);
+    gate_ok = apply_gates(fp, ip, ip.sel_flags, gw, col[0], col[1], col[2], alpha);
   }
   const float radius = live_radius(ip.display_mode, sg.radius, alpha);
   const bool valid = splat_valid(fp, sg, radius, alpha, gate_ok);

@@ -15,7 +15,9 @@
 //      second tiny kernel turns them into each digit's global start;
 //   2. four passes, one kernel each (Adinets & Merrill, "Onesweep", 2022).
 //      A block takes its tile of 2560 entries from an atomic ticket (so
-//      the tiles before it are running and look-back always progresses),
+//      the tiles before it are running and look-back always progresses;
+//      passes 2-4 run a grid that fits the card at once, whose blocks take
+//      tickets until the live entries' tiles run out),
 //      loads them as 16-byte vectors, ranks them stably in the block (warp
 //      multi-split with __match_any_sync and per-warp digit counters
 //      combined in warp order), publishes its per-digit counts and then its
@@ -24,8 +26,12 @@
 //      order in shared memory and stores each digit run with consecutive
 //      threads on consecutive addresses. Pass 1 reads the raw slots and
 //      leaves sentinel slots out of its ranks, so it also compacts;
-//   3. run edges: thread i writes edges[t] = i for every tile t in
-//      (tile(i-1), tile(i)], and the last thread closes the tail.
+//   3. run edges: entry i writes edges[t] = i for every tile t in
+//      (tile(i-1), tile(i)], and the last entry closes the tail.
+//
+// The live count stays on the device: passes 2-4 and the edges read it
+// there, so the host issues the sort with no wait and the sort can be
+// captured in a CUDA graph; the buffers are sized by the slots.
 //
 // What bounds it on an H100: memory traffic. E slots of which L are live
 // move 16 E (upfront) + 16 E + 16 L (pass 1) + 3 x 32 L (passes 2-4) bytes.
@@ -139,13 +145,21 @@ __global__ void __launch_bounds__(kRadix) digit_start_kernel(unsigned* __restric
 // ---- 2. one-sweep digit pass ----------------------------------------------------
 
 // One stable scatter pass on the digit at `shift`: in[0, n) -> out, live
-// entries only (in[i].x != SENTINEL; every entry after pass 1). `start`:
-// each digit's global start; `status`: kRadix zeroed words per tile;
-// `ticket`: a zeroed counter.
+// entries only (in[i].x != SENTINEL; every entry after pass 1). n is
+// `n_fixed` where `live_count` is NULL (pass 1: every slot), else
+// *live_count, the count
+// the upfront pass left on the device, so that the host never reads it.
+// `start`: each digit's global start; `status`: kRadix zeroed words per
+// tile; `status_next` (NULL on the last pass): the next pass's status, whose
+// rows of the tiles this pass takes it zeroes; `ticket`: a zeroed counter. A
+// block takes tiles by ticket until they run out, so a grid smaller than the
+// tiles walks them all (the blocks that took earlier tickets are running,
+// so look-back always progresses).
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-onesweep_pass_kernel(const uint4* __restrict__ in, uint4* __restrict__ out, long long n,
-                     int shift, const unsigned* __restrict__ start, unsigned* status,
-                     unsigned* ticket) {
+onesweep_pass_kernel(const uint4* __restrict__ in, uint4* __restrict__ out, long long n_fixed,
+                     const unsigned* __restrict__ live_count, int shift,
+                     const unsigned* __restrict__ start, unsigned* status,
+                     unsigned* __restrict__ status_next, unsigned* ticket) {
   extern __shared__ uint4 s_ent[];              // kTile entries in digit order
   __shared__ unsigned s_warp[kWarps][kRadix];   // per-warp digit counts -> offsets
   __shared__ unsigned s_excl[kRadix];           // digit's start in the block's order
@@ -153,102 +167,115 @@ onesweep_pass_kernel(const uint4* __restrict__ in, uint4* __restrict__ out, long
   __shared__ unsigned s_sums[kWarps];
   __shared__ unsigned s_tile;
 
+  const long long n = live_count == nullptr ? n_fixed : (long long)*live_count;
+  const unsigned tiles = (unsigned)((n + kTile - 1) / kTile);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (;;) {
+    __syncthreads();  // the last tile's reads of shared memory are done
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) s_warp[w][tid] = 0u;
-  if (tid == 0) s_tile = atomicAdd(ticket, 1u);
-  __syncthreads();
-  const unsigned tile = s_tile;
+    for (int w = 0; w < kWarps; ++w) s_warp[w][tid] = 0u;
+    if (tid == 0) s_tile = atomicAdd(ticket, 1u);
+    __syncthreads();
+    const unsigned tile = s_tile;
+    if (tile >= tiles) return;
+    if (status_next != nullptr) status_next[(size_t)tile * kRadix + tid] = 0u;
 
-  // Warp w holds entries [w * 32 * kItems, (w + 1) * 32 * kItems) of the
-  // tile; item r of lane l is entry r * 32 + l of that range, so (warp,
-  // item, lane) is slot order.
-  const long long base = (long long)tile * kTile + warp * (32 * kItems) + lane;
-  uint4 e[kItems];
+    // Warp w holds entries [w * 32 * kItems, (w + 1) * 32 * kItems) of the
+    // tile; item r of lane l is entry r * 32 + l of that range, so (warp,
+    // item, lane) is slot order.
+    const long long base = (long long)tile * kTile + warp * (32 * kItems) + lane;
+    uint4 e[kItems];
 #pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    const long long i = base + r * 32;
-    e[r] = i < n ? in[i] : make_uint4(GS_SENTINEL, 0u, 0u, 0u);
-  }
-
-  // Stable rank inside the warp: peers by __match_any_sync, earlier items
-  // of the same digit counted in s_warp; the lowest peer advances it.
-  const unsigned lt = lanemask_lt();
-  unsigned rank[kItems];
-#pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    const bool live = e[r].x != GS_SENTINEL;
-    const unsigned d = live ? (e[r].x >> shift) & 0xFFu : 0x100u;
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
-    const unsigned before = live ? s_warp[warp][d] : 0u;
-    __syncwarp();
-    const unsigned pre = __popc(peers & lt);
-    rank[r] = before + pre;
-    if (live && pre == 0) s_warp[warp][d] = before + __popc(peers);
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // Thread d: the warps' counts of digit d -> exclusive offsets in warp
-  // order; the block's count of d is published at once for look-back.
-  const unsigned d = tid;
-  unsigned count = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const unsigned c = s_warp[w][d];
-    s_warp[w][d] = count;
-    count += c;
-  }
-  volatile unsigned* my_status = status + (size_t)tile * kRadix + d;
-  *my_status = (tile == 0 ? kFlagInclusive : kFlagAggregate) | count;
-  unsigned n_tile;
-  const unsigned excl = block_exclusive_scan(count, s_sums, &n_tile);
-  s_excl[d] = excl;
-  __syncthreads();
-
-  // Reorder into digit order in shared memory.
-#pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    if (e[r].x == GS_SENTINEL) continue;
-    const unsigned dr = (e[r].x >> shift) & 0xFFu;
-    s_ent[s_excl[dr] + s_warp[warp][dr] + rank[r]] = e[r];
-  }
-
-  // Decoupled look-back over the earlier tiles for digit d.
-  unsigned prefix = 0;
-  if (tile > 0) {
-    for (long long p = (long long)tile - 1;; --p) {
-      const volatile unsigned* ps = status + (size_t)p * kRadix + d;
-      unsigned s;
-      do {
-        s = *ps;
-      } while ((s & ~kCountMask) == 0u);
-      prefix += s & kCountMask;
-      if (s & kFlagInclusive) break;
+    for (int r = 0; r < kItems; ++r) {
+      const long long i = base + r * 32;
+      e[r] = i < n ? in[i] : make_uint4(GS_SENTINEL, 0u, 0u, 0u);
     }
-    *my_status = kFlagInclusive | (prefix + count);
-  }
-  s_off[d] = (int)(start[d] + prefix) - (int)excl;
-  __syncthreads();
 
-  // Each digit run of the tile to its place: consecutive threads, consecutive addresses.
-  for (int i = tid; i < (int)n_tile; i += kThreads) {
-    const uint4 x = s_ent[i];
-    out[s_off[(x.x >> shift) & 0xFFu] + i] = x;
+    // Stable rank inside the warp: peers by __match_any_sync, earlier items
+    // of the same digit counted in s_warp; the lowest peer advances it.
+    const unsigned lt = lanemask_lt();
+    unsigned rank[kItems];
+#pragma unroll
+    for (int r = 0; r < kItems; ++r) {
+      const bool live = e[r].x != GS_SENTINEL;
+      const unsigned d = live ? (e[r].x >> shift) & 0xFFu : 0x100u;
+      const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
+      const unsigned before = live ? s_warp[warp][d] : 0u;
+      __syncwarp();
+      const unsigned pre = __popc(peers & lt);
+      rank[r] = before + pre;
+      if (live && pre == 0) s_warp[warp][d] = before + __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+
+    // Thread d: the warps' counts of digit d -> exclusive offsets in warp
+    // order; the block's count of d is published at once for look-back.
+    const unsigned d = tid;
+    unsigned count = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const unsigned c = s_warp[w][d];
+      s_warp[w][d] = count;
+      count += c;
+    }
+    volatile unsigned* my_status = status + (size_t)tile * kRadix + d;
+    *my_status = (tile == 0 ? kFlagInclusive : kFlagAggregate) | count;
+    unsigned n_tile;
+    const unsigned excl = block_exclusive_scan(count, s_sums, &n_tile);
+    s_excl[d] = excl;
+    __syncthreads();
+
+    // Reorder into digit order in shared memory.
+#pragma unroll
+    for (int r = 0; r < kItems; ++r) {
+      if (e[r].x == GS_SENTINEL) continue;
+      const unsigned dr = (e[r].x >> shift) & 0xFFu;
+      s_ent[s_excl[dr] + s_warp[warp][dr] + rank[r]] = e[r];
+    }
+
+    // Decoupled look-back over the earlier tiles for digit d.
+    unsigned prefix = 0;
+    if (tile > 0) {
+      for (long long p = (long long)tile - 1;; --p) {
+        const volatile unsigned* ps = status + (size_t)p * kRadix + d;
+        unsigned s;
+        do {
+          s = *ps;
+        } while ((s & ~kCountMask) == 0u);
+        prefix += s & kCountMask;
+        if (s & kFlagInclusive) break;
+      }
+      *my_status = kFlagInclusive | (prefix + count);
+    }
+    s_off[d] = (int)(start[d] + prefix) - (int)excl;
+    __syncthreads();
+
+    // Each digit run of the tile to its place: consecutive threads, consecutive addresses.
+    for (int i = tid; i < (int)n_tile; i += kThreads) {
+      const uint4 x = s_ent[i];
+      out[s_off[(x.x >> shift) & 0xFFu] + i] = x;
+    }
+    if (gridDim.x >= tiles) return;  // one tile a block
   }
 }
 
 // ---- 3. tile edges -----------------------------------------------------------
 
-__global__ void tile_edges_kernel(const uint4* __restrict__ sorted, int n, int shift,
-                                  int n_tiles, int* __restrict__ edges) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int t = (int)(sorted[i].x >> shift);
-  const int tp = i == 0 ? -1 : (int)(sorted[i - 1].x >> shift);
-  for (int u = tp + 1; u <= t; ++u) edges[u] = i;
-  if (i == n - 1)
-    for (int u = t + 1; u <= n_tiles; ++u) edges[u] = n;
+// Over the *live sorted entries, a grid-stride loop: entry i writes
+// edges[t] = i for every tile t in (tile(i-1), tile(i)], and the last one
+// closes the tail.
+__global__ void tile_edges_kernel(const uint4* __restrict__ sorted,
+                                  const unsigned* __restrict__ live, int shift, int n_tiles,
+                                  int* __restrict__ edges) {
+  const int n = (int)*live;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const int t = (int)(sorted[i].x >> shift);
+    const int tp = i == 0 ? -1 : (int)(sorted[i - 1].x >> shift);
+    for (int u = tp + 1; u <= t; ++u) edges[u] = i;
+    if (i == n - 1)
+      for (int u = t + 1; u <= n_tiles; ++u) edges[u] = n;
+  }
 }
 
 }  // namespace
@@ -262,11 +289,22 @@ int gs_sort_num_tiles(long long n) { return (int)((n + kTile - 1) / kTile); }
 // keys, [1024] the live count, [1025, 2049) each digit's global start.
 int gs_sort_meta_words() { return kMetaWords; }
 
-// Upfront pass over entries[0, n): fills meta (zeroed here).
-int gs_sort_upfront(const void* entries, long long n, unsigned* meta, void* stream) {
+// The whole sort, with no read by the host: entries[0, n) -> buf_a[0, L)
+// sorted, where L, the live count, is counted on the device into meta[1024]
+// (gs_sort_meta_words); then the run edges of the sorted keys' tile field
+// at bit `shift` into edges[0, n_tiles]. buf_a and buf_b hold n entries
+// each (buf_b is scratch), status 2 * gs_sort_num_tiles(n) * 256 words,
+// tickets 4 words. Pass 1 runs a block a tile of the n slots; passes 2-4
+// and the edges, whose work is L, run a grid that fits the card at once
+// and walk L's tiles.
+int gs_sort(const void* entries, long long n, unsigned* meta, void* buf_a, void* buf_b,
+            unsigned* status, unsigned* tickets, int shift, int n_tiles, int* edges,
+            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(meta, 0, sizeof(unsigned) * kMetaWords, st);
+  cudaError_t err = cudaMemsetAsync(edges, 0, sizeof(int) * (n_tiles + 1), st);
+  if (err == cudaSuccess) err = cudaMemsetAsync(meta, 0, sizeof(unsigned) * kMetaWords, st);
   if (err != cudaSuccess || n <= 0) return (int)err;
+  if (n > (long long)kCountMask) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -274,49 +312,32 @@ int gs_sort_upfront(const void* entries, long long n, unsigned* meta, void* stre
   const int grid = (int)(want < 4LL * sms ? want : 4LL * sms);
   upfront_kernel<<<grid, kThreads, 0, st>>>(static_cast<const uint4*>(entries), n, meta);
   digit_start_kernel<<<kPasses, kRadix, 0, st>>>(meta);
-  return (int)cudaGetLastError();
-}
-
-// The four passes: entries[0, n) (n_live of them live, as gs_sort_upfront
-// counted into meta) -> buf_a[0, n_live), sorted; buf_b is scratch of the
-// same size; status holds gs_sort_num_tiles(n) * 256 words, tickets 4.
-int gs_sort_onesweep(const void* entries, long long n, void* buf_a, void* buf_b, long long n_live,
-                     const unsigned* meta, unsigned* status, unsigned* tickets, void* stream) {
-  if (n_live <= 0) return 0;
-  if (n_live > (long long)kCountMask || n > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   // Set on every call: the attribute belongs to the current device.
-  cudaError_t err = cudaFuncSetAttribute(onesweep_pass_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kPassSmem);
+  err = cudaFuncSetAttribute(onesweep_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kPassSmem);
   if (err != cudaSuccess) return (int)err;
+  const int tiles = gs_sort_num_tiles(n);
   err = cudaMemsetAsync(tickets, 0, sizeof(unsigned) * kPasses, st);
+  if (err == cudaSuccess) err = cudaMemsetAsync(status, 0, sizeof(unsigned) * kRadix * tiles, st);
   if (err != cudaSuccess) return (int)err;
-  // entries -> b -> a -> b -> a.
+  const unsigned* live = meta + kPasses * kRadix;
+  const int resident = kMinBlocks * sms < tiles ? kMinBlocks * sms : tiles;
+  // entries -> b -> a -> b -> a; the status alternates between two regions.
   const uint4* src = static_cast<const uint4*>(entries);
   uint4* a = static_cast<uint4*>(buf_a);
   uint4* b = static_cast<uint4*>(buf_b);
-  long long n_src = n;
   for (int p = 0; p < kPasses; ++p) {
     uint4* dst = (p & 1) ? a : b;
-    const int tiles = gs_sort_num_tiles(n_src);
-    err = cudaMemsetAsync(status, 0, sizeof(unsigned) * kRadix * tiles, st);
-    if (err != cudaSuccess) return (int)err;
-    onesweep_pass_kernel<<<tiles, kThreads, kPassSmem, st>>>(
-        src, dst, n_src, 8 * p, meta + kMetaStarts + p * kRadix, status, tickets + p);
+    unsigned* cur = status + (size_t)(p & 1) * kRadix * tiles;
+    unsigned* next = p + 1 < kPasses ? status + (size_t)((p + 1) & 1) * kRadix * tiles : nullptr;
+    onesweep_pass_kernel<<<p == 0 ? tiles : resident, kThreads, kPassSmem, st>>>(
+        src, dst, n, p == 0 ? nullptr : live, 8 * p, meta + kMetaStarts + p * kRadix, cur, next,
+        tickets + p);
     src = dst;
-    n_src = n_live;
   }
-  return (int)cudaGetLastError();
-}
-
-// edges: n_tiles + 1 ints, pre-filled with 0 by the caller when n == 0.
-int gs_sort_tile_edges(const void* sorted, int n, int shift, int n_tiles, int* edges,
-                       void* stream) {
-  if (n <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  tile_edges_kernel<<<(n + 255) / 256, 256, 0, st>>>(static_cast<const uint4*>(sorted), n, shift,
-                                                     n_tiles, edges);
+  const long long edge_blocks = (n + kThreads - 1) / kThreads;
+  tile_edges_kernel<<<(int)(edge_blocks < 8LL * sms ? edge_blocks : 8LL * sms), kThreads, 0, st>>>(
+      a, live, shift, n_tiles, edges);
   return (int)cudaGetLastError();
 }
 

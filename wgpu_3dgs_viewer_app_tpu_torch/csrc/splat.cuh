@@ -34,10 +34,24 @@ struct IntParams {
   int n, sh_comp, cov_comp, sh_degree, no_sh0, display_mode;
   int tile, tiles_x, tiles_y, max_dup, tile_shift;
   int gates, sel_flags;
-  int rank_shift, model_rank;  // key bits below the model rank; the rank (K1)
+  int rank_shift, model_rank;  // key bits below the model rank; the rank
+  // (K1 takes sel_flags and model_rank from its FrameRecord instead)
 };
 constexpr int kIntParams = 15;
 static_assert(sizeof(IntParams) == kIntParams * sizeof(int), "int params");
+
+// K1's per-frame scalars of one model, in device memory (a row of the
+// viewer's parameter block, ops/fused.py::write_frame_record): the floats,
+// then the two ints a frame may change, the selection edit's flags and the
+// model rank. K1 reads these, not IntParams' fields of the same names, so
+// that a launch captured in a CUDA graph takes each frame's values.
+struct FrameRecord {
+  FrameParams fp;
+  int sel_flags, model_rank;
+  int pad[7];
+};
+constexpr int kRecordWords = 64;
+static_assert(sizeof(FrameRecord) == kRecordWords * sizeof(int), "frame record");
 
 enum { SH_SINGLE = 0, SH_HALF = 1, SH_NORM8 = 2, SH_REMOVE = 3 };
 enum { COV_SINGLE = 0, COV_HALF = 1 };
@@ -365,9 +379,11 @@ __device__ __forceinline__ GateWords load_gates(const IntParams& ip, const Gates
 // edit, selection edit, highlight. Edits change colour and opacity in
 // place; returns false when a gate drops the splat. The two edits run as
 // one loop that is not unrolled, so the edit's code is there once.
+// `sel_flags`: the selection edit's flags (IntParams' for K4 and K8, the
+// frame record's for K1).
 __device__ __forceinline__ bool apply_gates(const FrameParams& fp, const IntParams& ip,
-                                            const GateWords& gw, float& r, float& g, float& b,
-                                            float& alpha) {
+                                            int sel_flags, const GateWords& gw, float& r,
+                                            float& g, float& b, float& alpha) {
   bool keep = true;
   if (ip.gates & GATE_MASK) keep = gw.mask;
   const bool sel = (ip.gates & (GATE_SEL_EDIT | GATE_HIGHLIGHT)) && gw.sel;
@@ -376,7 +392,7 @@ __device__ __forceinline__ bool apply_gates(const FrameParams& fp, const IntPara
     const bool own = k == 0;
     if (own ? !(ip.gates & GATE_EDIT) : !((ip.gates & GATE_SEL_EDIT) && sel)) continue;
     const bool hidden = apply_edit(
-        r, g, b, alpha, own ? gw.eflags : (uint32_t)ip.sel_flags,
+        r, g, b, alpha, own ? gw.eflags : (uint32_t)sel_flags,
         own ? gw.ergb[0] : fp.sel_rgb[0], own ? gw.ergb[1] : fp.sel_rgb[1],
         own ? gw.ergb[2] : fp.sel_rgb[2], own ? gw.eparams[0] : fp.sel_params[0],
         own ? gw.eparams[1] : fp.sel_params[1], own ? gw.eparams[2] : fp.sel_params[2],

@@ -42,6 +42,7 @@ import dataclasses
 import torch
 
 from ..core.f16 import as_i32, f16_bits_to_f32, f32_to_f16_bits, pack2xf16, u32, unpack2xf16
+from ..utils import trace
 from . import kernels
 from .preprocess import PreprocessOut
 
@@ -131,15 +132,39 @@ class TileConfig:
         return float(2 ** self.v2_depth_bits - 1) / (DEPTH_LN_MAX - DEPTH_LN_MIN)
 
 
-@dataclasses.dataclass
 class SortedEntries:
     """Key-sorted live entries plus per-tile ranges: tile t owns entries
-    [tile_starts[t], tile_starts[t] + tile_counts[t])."""
+    [tile_starts[t], tile_starts[t] + tile_counts[t]).
 
-    entries: torch.Tensor      # (E, 4) int32: key, p1, p2, p3
-    tile_starts: torch.Tensor  # (n_tiles,) int32
-    tile_counts: torch.Tensor  # (n_tiles,) int32
-    n_valid: int               # live entries
+    `entries` (E, 4) int32 (key, p1, p2, p3) holds the live entries in its
+    first `n_valid` rows; K2 on a card sizes its buffers by the slots it
+    sorted and leaves the live count on the device, where it is given as a
+    (1,) tensor and read (the host waits for the device) only when
+    `n_valid` is asked for. `tile_starts` and `tile_counts`: (n_tiles,)
+    int32."""
+
+    def __init__(self, entries: torch.Tensor, tile_starts: torch.Tensor,
+                 tile_counts: torch.Tensor, n_valid):
+        self.entries, self.tile_starts, self.tile_counts = entries, tile_starts, tile_counts
+        self._n_valid = n_valid
+
+    @property
+    def n_valid(self) -> int:
+        """The live entries (read from the device at the first ask)."""
+        n = self._n_valid
+        if torch.is_tensor(n):
+            with trace.host_read(n.is_cuda):
+                n = self._n_valid = int(n.item())
+        return n
+
+    def live(self) -> torch.Tensor:
+        """The (n_valid, 4) live entries."""
+        return self.entries[: self.n_valid]
+
+    def ranged(self, tile_starts: torch.Tensor, tile_counts: torch.Tensor) -> "SortedEntries":
+        """The same entries and live count (unread where it is unread) with
+        other tile ranges."""
+        return SortedEntries(self.entries, tile_starts, tile_counts, self._n_valid)
 
 
 def check_model_rank(cfg: TileConfig, model_rank: int) -> int:
@@ -421,7 +446,8 @@ def build_tile_lists(pre: PreprocessOut, cfg: TileConfig) -> TileLists:
     from .sort import sort_entries
 
     se = sort_entries(tile_list_entries(pre, cfg), cfg, shift=cfg.depth_bits)
-    return TileLists(sorted_keys=se.entries[:, 0], sorted_idx=se.entries[:, 1],
+    live = se.live()
+    return TileLists(sorted_keys=live[:, 0], sorted_idx=live[:, 1],
                      tile_starts=se.tile_starts, tile_counts=se.tile_counts, n_valid=se.n_valid)
 
 

@@ -316,8 +316,26 @@ def composite_tiles_plain_v2(entries: SortedEntries, cfg: TileConfig, flat_mode:
     return _chunk_loop(cfg, n_chunks, blend, stats)
 
 
+def composite_buffers(cfg: TileConfig, device) -> dict:
+    """What K3 writes compositing under `cfg`: the image, and where the
+    tile's walk is split in two launches the list and state the first hands
+    the second (or the parts' exit chunks, over 256 px). A caller that
+    composites every frame keeps one set (`composite_tiles_v2(bufs=)`)."""
+    bufs = {"out": torch.empty((cfg.height, cfg.width, 4), dtype=torch.float32, device=device),
+            "scratch": None, "state": None}
+    if _budgeted(cfg.tile):
+        # The list of tiles pass 1 hands on (its counts zeroed by the
+        # launcher) and their pixels' state.
+        bufs["scratch"] = torch.empty(2 + cfg.n_tiles, dtype=torch.int32, device=device)
+        bufs["state"] = torch.empty((cfg.n_tiles * cfg.tile * cfg.tile, 4), dtype=torch.float32,
+                                    device=device)
+    elif cfg.tile > _MAX_CLUSTER_TILE:
+        bufs["scratch"] = _part_scratch(cfg, device)
+    return bufs
+
+
 def _composite_tiles_cuda(entries: SortedEntries, cfg: TileConfig, flat_mode: bool,
-                          mxu: bool) -> torch.Tensor:
+                          mxu: bool, bufs: dict | None) -> torch.Tensor:
     """K3 (`mxu`: the quadratic-basis exponent in splat mode)."""
     _require_tile(cfg)
     lib = kernels.library()
@@ -326,44 +344,55 @@ def _composite_tiles_cuda(entries: SortedEntries, cfg: TileConfig, flat_mode: bo
     kernels.require(entries.tile_starts, "tile_starts", torch.int32, (cfg.n_tiles,), ent.device)
     kernels.require(entries.tile_counts, "tile_counts", torch.int32, (cfg.n_tiles,), ent.device)
     dev = ent.device
-    out = torch.empty((cfg.height, cfg.width, 4), dtype=torch.float32, device=dev)
-    state = handed = None
-    if _budgeted(cfg.tile):
-        # The list of tiles pass 1 hands on (its counts zeroed by the
-        # launcher) and their pixels' state.
-        scratch = torch.empty(2 + cfg.n_tiles, dtype=torch.int32, device=dev)
-        state = torch.empty((cfg.n_tiles * cfg.tile * cfg.tile, 4), dtype=torch.float32,
-                            device=dev)
-        handed = trace.k3_handed(dev)
-    else:
-        scratch = _part_scratch(cfg, dev)
+    if bufs is None:
+        bufs = composite_buffers(cfg, dev)
+    elif cfg.tile > _MAX_CLUSTER_TILE:
+        bufs["scratch"].zero_()  # the parts' exit chunks start at 0
+    out = bufs["out"]
+    kernels.require(out, "out", torch.float32, (cfg.height, cfg.width, 4), dev)
+    handed = trace.k3_handed(dev) if _budgeted(cfg.tile) else None
     p = kernels.ptr
     _check_launch(lib.gs_composite_v2(p(ent), p(entries.tile_starts), p(entries.tile_counts),
                                       cfg.n_tiles, cfg.tile, cfg.tiles_x, cfg.width, cfg.height,
-                                      int(flat_mode), int(mxu and not flat_mode), p(scratch),
-                                      p(state), p(handed), p(out), kernels.stream()),
+                                      int(flat_mode), int(mxu and not flat_mode),
+                                      p(bufs["scratch"]), p(bufs["state"]), p(handed), p(out),
+                                      kernels.stream()),
                   "gs_composite_v2", cfg)
     kernels.LAUNCHES["composite"] += composite_launches(cfg.tile)
     return out
 
 
 def composite_tiles_v2(entries: SortedEntries, cfg: TileConfig, flat_mode: bool = False,
-                       transposed: bool = True, mxu: bool = False) -> torch.Tensor:
+                       transposed: bool = True, mxu: bool = False,
+                       bufs: dict | None = None) -> torch.Tensor:
     """SortedEntries -> (H, W, 4) premultiplied RGBA: kernel K3 on CUDA, the
     plain version on the CPU (with `mxu`). `transposed` mirrors the JAX
     `composite_tiles_pallas_v2`, where it picks a TPU lane layout; both
-    layouts compute one function, so it selects nothing here."""
+    layouts compute one function, so it selects nothing here. On a card K3
+    writes into `bufs` (`composite_buffers(cfg)`) where given, else into new
+    ones."""
     del transposed
     if entries.entries.device.type == "cpu":
         return composite_tiles_plain_v2(entries, cfg, flat_mode, mxu=mxu)
-    return _composite_tiles_cuda(entries, cfg, flat_mode, mxu)
+    return _composite_tiles_cuda(entries, cfg, flat_mode, mxu, bufs)
 
 
-def over_background(img: torch.Tensor, background) -> torch.Tensor:
+def over_background(img: torch.Tensor, background, out: torch.Tensor | None = None,
+                    scratch: torch.Tensor | None = None) -> torch.Tensor:
     """Premultiplied (H, W, 4) over an opaque background colour -> (H, W, 3)
-    (the compositor's last step: span `k3.composite`)."""
+    (the compositor's last step: span `k3.composite`). `background`: (3,)
+    on the image's device (no wait), or host values, which on a card are
+    copied from pageable memory (torch waits for the stream). With `out`,
+    an (H, W, 3) f32 tensor, and `scratch`, an (H, W, 1) one, the result is
+    written into `out` and nothing is allocated (the same operations)."""
     with trace.span("k3.composite"):
-        # A copy from pageable host memory: on a card torch waits for the stream.
-        with trace.host_read(img.is_cuda):
-            bg = torch.as_tensor(background, dtype=torch.float32, device=img.device)
-        return img[..., :3] + (1.0 - img[..., 3:4]) * bg
+        if torch.is_tensor(background) and background.device == img.device:
+            bg = background
+        else:
+            with trace.host_read(img.is_cuda):
+                bg = torch.as_tensor(background, dtype=torch.float32, device=img.device)
+        if out is None:
+            return img[..., :3] + (1.0 - img[..., 3:4]) * bg
+        torch.neg(img[..., 3:4], out=scratch).add_(1.0)  # 1 - a, as rounded above
+        torch.mul(scratch, bg, out=out)
+        return torch.add(img[..., :3], out, out=out)

@@ -20,13 +20,17 @@
 The kernels read the gate tensors where they lie: `mask_bits` and
 `selection_bits` as (N,) uint8, the per-splat edit as int32 flags (N,),
 f32 rgb (N, 3) and f32 params (N, 4). The scene-wide selection edit and
-highlight ride the frame scalars.
+highlight ride the frame scalars. K4 and K8 take them by value; K1 takes
+them from a FrameRecord in device memory, which its launcher copies into
+the kernel's constant record on the stream before the launch, so that a
+launch captured in a CUDA graph takes each frame's values.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..data.compression import Compressions, Cov3dCompression, ShCompression
@@ -44,6 +48,11 @@ _SH_ROWS = {ShCompression.SINGLE: (45, torch.float32), ShCompression.HALF: (23, 
 # Gate bits of `csrc/splat.cuh::IntParams::gates`.
 GATE_MASK, GATE_EDIT, GATE_SEL_EDIT, GATE_HIGHLIGHT = 1, 2, 4, 8
 _FRAME_FLOATS, _INT_PARAMS = 55, 15
+# `csrc/splat.cuh::FrameRecord`: the frame floats, then the selection edit's
+# flags and the model rank, in 64 words.
+RECORD_WORDS = 64
+_REC_SEL_FLAGS, _REC_RANK = _FRAME_FLOATS, _FRAME_FLOATS + 1
+_EYE = np.eye(4, dtype=np.float32)
 
 
 def _frame_param_array(fs: dict, cfg, scene_consts=(0.0,) * 11) -> list:
@@ -73,31 +82,57 @@ def _int_param_array(n: int, comp: Compressions, display_mode: int, gate_code: i
     return (ctypes.c_int * _INT_PARAMS)(*vals)
 
 
+def frame_base(view, proj, cfg, size: float) -> np.ndarray:
+    """The (55,) f32 frame floats that every model of a frame shares:
+    `_frame_param_array` at an identity model and no scene constants."""
+    fs = frame_scalars(view, proj, _EYE, cfg.width, cfg.height, size)
+    return np.asarray(_frame_param_array(fs, cfg), np.float32)
+
+
+def write_frame_record(row: np.ndarray, base: np.ndarray, model, model_rank: int, cfg,
+                       scene_consts=(0.0,) * 11, sel_flags: int = 0) -> np.ndarray:
+    """Write one model's FrameRecord into `row`, (RECORD_WORDS,) int32: the
+    frame floats of `frame_base` with the model's matrix rows and the scene
+    constants put in (so `_frame_param_array` of the model's frame scalars
+    to the bit), the selection edit's flags (int32) and the model's rank.
+    The words past those are left as they are."""
+    model = np.asarray(model, np.float32)
+    f = row.view(np.float32)
+    f[:_FRAME_FLOATS] = base
+    f[0:9] = model[:3, :3].reshape(9)
+    f[9:12] = model[:3, 3]
+    f[_FRAME_FLOATS - 11:_FRAME_FLOATS] = scene_consts
+    row[_REC_SEL_FLAGS] = sel_flags
+    row[_REC_RANK] = check_model_rank(cfg, model_rank)
+    return row
+
+
 def _i32(v: int) -> int:
     """A u32 value as the int32 with the same bits."""
     return v - (1 << 32) if v >= 1 << 31 else v
 
 
 def _cuda_gates(n: int, device, mask_bits=None, edit=None, selection_bits=None,
-                selection_edit=None, highlight_rgba=None) -> tuple:
-    """Check the gate tensors a kernel reads and return (gate bits,
-    selection-edit flags, the 11 scene constants, [mask, sel, flags, rgb,
-    params] tensors or None)."""
+                selection_edit=None, highlight_rgba=None, check: bool = True) -> tuple:
+    """Check the gate tensors a kernel reads (unless `check` is False) and
+    return (gate bits, selection-edit flags as int32, the 11 scene
+    constants, [mask, sel, flags, rgb, params] tensors or None)."""
+    req = kernels.require if check else (lambda *a: None)
     code, sel_flags, consts = 0, 0, [0.0] * 11
     tensors = [None] * 5
     if mask_bits is not None:
-        kernels.require(mask_bits, "mask_bits", torch.uint8, (n,), device)
+        req(mask_bits, "mask_bits", torch.uint8, (n,), device)
         code |= GATE_MASK
         tensors[0] = mask_bits
     if edit is not None:
         flags, rgb, params = edit
-        kernels.require(flags, "edit flags", torch.int32, (n,), device)
-        kernels.require(rgb, "edit rgb", torch.float32, (n, 3), device)
-        kernels.require(params, "edit params", torch.float32, (n, 4), device)
+        req(flags, "edit flags", torch.int32, (n,), device)
+        req(rgb, "edit rgb", torch.float32, (n, 3), device)
+        req(params, "edit params", torch.float32, (n, 4), device)
         code |= GATE_EDIT
         tensors[2:] = [flags, rgb, params]
     if selection_bits is not None and (selection_edit is not None or highlight_rgba is not None):
-        kernels.require(selection_bits, "selection_bits", torch.uint8, (n,), device)
+        req(selection_bits, "selection_bits", torch.uint8, (n,), device)
         tensors[1] = selection_bits
         if selection_edit is not None:
             sel_flags, rgb, params = selection_edit_scalars(selection_edit)
@@ -145,24 +180,33 @@ def _sh_tensors(pod: dict, comp: Compressions) -> tuple:
 
 
 def _enumerate_entries_cuda(pod, comp, cfg, view, proj, model, sh_degree, no_sh0, size,
-                            display_mode, model_rank, gates: dict, out=None) -> torch.Tensor:
+                            display_mode, model_rank, gates: dict, out=None,
+                            record=None) -> torch.Tensor:
     lib = kernels.library()
     n = pod["color0"].shape[-1]
+    dev = pod["color0"].device
     _require_pod(pod, comp, n, sh=True)
     if not 0 <= sh_degree <= 3 or display_mode not in (0, 1, 2):
         raise ValueError(f"sh_degree {sh_degree} / display_mode {display_mode} out of range")
-    code, sel_flags, consts, gt = _cuda_gates(n, pod["color0"].device, **gates)
-    fs = frame_scalars(view, proj, model, cfg.width, cfg.height, size)
-    frame = (ctypes.c_float * _FRAME_FLOATS)(*_frame_param_array(fs, cfg, consts))
+    code, sel_flags, consts, gt = _cuda_gates(n, dev, **gates)
     iparams = _int_param_array(n, comp, display_mode, code, sh_degree, no_sh0, cfg, sel_flags,
                                model_rank)
-    if out is None:
-        out = torch.empty((n * cfg.max_dup, 4), dtype=torch.int32, device=pod["color0"].device)
+    if record is None:
+        # The kernel reads its frame record from the device: here one of its
+        # own, copied from pinned memory (no wait).
+        host = torch.zeros(RECORD_WORDS, dtype=torch.int32, pin_memory=True)
+        write_frame_record(host.numpy(), frame_base(view, proj, cfg, size), model, model_rank,
+                           cfg, consts, sel_flags)
+        record = host.to(dev, non_blocking=True)
     else:
-        kernels.require(out, "out", torch.int32, (n * cfg.max_dup, 4), pod["color0"].device)
+        kernels.require(record, "record", torch.int32, (RECORD_WORDS,), dev)
+    if out is None:
+        out = torch.empty((n * cfg.max_dup, 4), dtype=torch.int32, device=dev)
+    else:
+        kernels.require(out, "out", torch.int32, (n * cfg.max_dup, 4), dev)
     p = kernels.ptr
     sh, mn, span = _sh_tensors(pod, comp)
-    kernels.check(lib.gs_fused_frontend(frame, iparams, p(pod["pos"]), p(pod["color0"]),
+    kernels.check(lib.gs_fused_frontend(p(record), iparams, p(pod["pos"]), p(pod["color0"]),
                                         p(pod["cov3d"]), p(sh), p(mn), p(span),
                                         *(p(t) for t in gt), p(out), kernels.stream()),
                   "gs_fused_frontend")
@@ -188,13 +232,17 @@ def enumerate_entries_fused(
     selection_edit=None,
     highlight_rgba=None,
     out=None,
+    record=None,
 ) -> torch.Tensor:
     """pod -> (N * max_dup, 4) int32 entries: kernel K1 on a CUDA pod, the
     plain version on a CPU pod. `view`, `proj`, `model`: (4, 4) f32 host
     matrices. `model_rank` keys the merged multi-model frame (needs
     `cfg.model_bits` > 0; nearest model = 0). Gates as in `preprocess`; only
     the given ones cost anything. `out`: an (N * max_dup, 4) int32 tensor (or
-    a row slice of a larger one) to write into."""
+    a row slice of a larger one) to write into. `record` (card only): the
+    model's FrameRecord on the device (`write_frame_record`), which K1 then reads
+    for the frame's scalars, the selection edit's flags and the rank in
+    place of those arguments."""
     gates = dict(mask_bits=mask_bits, edit=edit, selection_bits=selection_bits,
                  selection_edit=selection_edit, highlight_rgba=highlight_rgba)
     args = (pod, comp, cfg, view, proj, model, sh_degree, no_sh0, size, display_mode,
@@ -202,7 +250,7 @@ def enumerate_entries_fused(
     if pod["color0"].device.type == "cpu":
         ent = enumerate_entries_plain(*args, **gates)
         return ent if out is None else out.copy_(ent)
-    return _enumerate_entries_cuda(*args, gates, out)
+    return _enumerate_entries_cuda(*args, gates, out, record)
 
 
 def build_sorted_entries_fused(

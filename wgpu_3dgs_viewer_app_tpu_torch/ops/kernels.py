@@ -52,15 +52,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "gs_fused_frontend": [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I)] + [_P] * 13,
+    "gs_fused_frontend": [_P, ctypes.POINTER(_I)] + [_P] * 13,
+    "gs_copy_async": [_P, _P, ctypes.c_longlong, _P],
+    "gs_record_event": [_P, _P],
     "gs_geometry": [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I)] + [_P] * 14,
     "gs_preprocess": [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I)] + [_P] * 14,
     "gs_enum_pack": [_I] * 8 + [_F] * 2 + [_P] * 14,
     "gs_sort_num_tiles": [ctypes.c_longlong],
     "gs_sort_meta_words": [],
-    "gs_sort_upfront": [_P, ctypes.c_longlong, _P, _P],
-    "gs_sort_onesweep": [_P, ctypes.c_longlong, _P, _P, ctypes.c_longlong, _P, _P, _P, _P],
-    "gs_sort_tile_edges": [_P, _I, _I, _I, _P, _P],
+    "gs_sort": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "gs_composite_v2": [_P, _P, _P] + [_I] * 7 + [_P] * 5,
     "gs_composite_v2_budget": [],
     "gs_composite_v1": [_P, ctypes.c_longlong, _P, _P] + [_I] * 6 + [_P, _P, _P],

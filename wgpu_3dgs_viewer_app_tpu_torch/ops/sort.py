@@ -6,7 +6,7 @@ the per-tile run edges.
 searchsorted of `ops/binning.py`). On CUDA entries it launches kernel K2
 (`csrc/sort.cu`): one upfront read that counts the live entries and builds
 every digit histogram, four one-sweep stable radix passes (the first also
-compacts) and the tile edges. On CPU entries it runs the plain version,
+compacts) and the tile edges, with the live count left on the device. On CPU entries it runs the plain version,
 `sort_entries_plain`: `torch.sort(stable=True)` of the live keys and a
 gather. Both return the live entries only, equal keys in slot order, so
 the two agree entry for entry (`testing.compare_sorted(stable=True)`).
@@ -23,7 +23,6 @@ from __future__ import annotations
 import torch
 
 from ..core.f16 import u32
-from ..utils import trace
 from . import kernels
 from .binning import (SENTINEL, SortedEntries, TileConfig, sorted_entries_from_edges,
                       tile_edges_plain)
@@ -43,35 +42,54 @@ def sort_entries_plain(entries: torch.Tensor, cfg: TileConfig,
     return sorted_entries_from_edges(entries, tile_edges_plain(entries[:, 0], cfg, shift), cfg)
 
 
-def _sort_entries_cuda(entries: torch.Tensor, cfg: TileConfig, shift: int) -> SortedEntries:
+def sort_buffers(n: int, n_tiles: int, device) -> dict:
+    """What K2 writes sorting n slots into `n_tiles` tiles: the meta words
+    (histograms, live count, digit starts), the two entry buffers, the
+    look-back status, the tickets, the run edges and the tile counts. A
+    caller that sorts every frame keeps one set (`sort_entries(bufs=)`, for
+    n slots or fewer)."""
+    lib = kernels.library()
+    i32 = torch.int32
+    return {"meta": torch.empty(lib.gs_sort_meta_words(), dtype=i32, device=device),
+            "a": torch.empty((n, 4), dtype=i32, device=device),
+            "b": torch.empty((n, 4), dtype=i32, device=device),
+            "status": torch.empty(2 * max(lib.gs_sort_num_tiles(n), 1) * 256, dtype=i32,
+                                  device=device),
+            "tickets": torch.empty(4, dtype=i32, device=device),
+            "edges": torch.empty(n_tiles + 1, dtype=i32, device=device),
+            "counts": torch.empty(n_tiles, dtype=i32, device=device)}
+
+
+def _sort_entries_cuda(entries: torch.Tensor, cfg: TileConfig, shift: int,
+                       bufs: dict | None) -> SortedEntries:
     lib = kernels.library()
     n = entries.shape[0]
     kernels.require(entries, "entries", torch.int32, (n, 4))
-    dev, i32, st, p = entries.device, torch.int32, kernels.stream(), kernels.ptr
-    meta = torch.empty(lib.gs_sort_meta_words(), dtype=i32, device=dev)
-    kernels.check(lib.gs_sort_upfront(p(entries), n, p(meta), st), "gs_sort_upfront")
-    # The live count sizes the sort buffers: one device->host read per frame.
-    with trace.host_read():
-        n_live = int(meta[_META_LIVE].item())
-    buf_a = torch.empty((n_live, 4), dtype=i32, device=dev)
-    buf_b = torch.empty((n_live, 4), dtype=i32, device=dev)
-    status = torch.empty(max(lib.gs_sort_num_tiles(n), 1) * 256, dtype=i32, device=dev)
-    tickets = torch.empty(4, dtype=i32, device=dev)
-    kernels.check(lib.gs_sort_onesweep(p(entries), n, p(buf_a), p(buf_b), n_live, p(meta),
-                                       p(status), p(tickets), st), "gs_sort_onesweep")
-    edges = torch.zeros(cfg.n_tiles + 1, dtype=i32, device=dev)
-    kernels.check(lib.gs_sort_tile_edges(p(buf_a), n_live, shift, cfg.n_tiles, p(edges), st),
-                  "gs_sort_tile_edges")
+    if bufs is None:
+        bufs = sort_buffers(n, cfg.n_tiles, entries.device)
+    if bufs["a"].shape[0] < n or bufs["status"].numel() < 2 * lib.gs_sort_num_tiles(n) * 256:
+        raise ValueError(f"sort buffers for {bufs['a'].shape[0]} slots, not {n}")
+    kernels.require(bufs["edges"], "edges", torch.int32, (cfg.n_tiles + 1,), entries.device)
+    a, b = bufs["a"][:n], bufs["b"][:n]
+    p = kernels.ptr
+    kernels.check(lib.gs_sort(p(entries), n, p(bufs["meta"]), p(a), p(b), p(bufs["status"]),
+                              p(bufs["tickets"]), shift, cfg.n_tiles, p(bufs["edges"]),
+                              kernels.stream()), "gs_sort")
     kernels.LAUNCHES["sort"] += 1
-    return SortedEntries(entries=buf_a, tile_starts=edges[:-1],
-                         tile_counts=edges[1:] - edges[:-1], n_valid=n_live)
+    edges = bufs["edges"]
+    counts = torch.sub(edges[1:], edges[:-1], out=bufs["counts"])
+    return SortedEntries(entries=a, tile_starts=edges[:-1], tile_counts=counts,
+                         n_valid=bufs["meta"][_META_LIVE:_META_LIVE + 1])
 
 
-def sort_entries(entries: torch.Tensor, cfg: TileConfig,
-                 shift: int | None = None) -> SortedEntries:
+def sort_entries(entries: torch.Tensor, cfg: TileConfig, shift: int | None = None,
+                 bufs: dict | None = None) -> SortedEntries:
     """(E, 4) int32 entries -> SortedEntries: kernel K2 on CUDA, the plain
     version on the CPU. The tile edges are read at key bit `shift`
-    (default `cfg._tile_shift`, the v2 layout)."""
+    (default `cfg._tile_shift`, the v2 layout). On a card the host issues
+    the sort and goes on: the live count stays on the device (the result's
+    `n_valid` reads it when asked), and K2 writes into `bufs`
+    (`sort_buffers(E, cfg.n_tiles)`) where given, else into new ones."""
     if entries.device.type == "cpu":
         return sort_entries_plain(entries, cfg, shift)
-    return _sort_entries_cuda(entries, cfg, cfg._tile_shift if shift is None else shift)
+    return _sort_entries_cuda(entries, cfg, cfg._tile_shift if shift is None else shift, bufs)

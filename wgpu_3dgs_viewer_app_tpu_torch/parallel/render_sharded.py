@@ -224,8 +224,7 @@ def _slab_entries(routed: torch.Tensor, cfg: TileConfig, slab_cfg: TileConfig,
     tiles = torch.arange(slab_tile0, slab_tile0 + slab_cfg.n_tiles + 1,
                          device=se.tile_starts.device)
     edges = _run_edges(se)[torch.clamp(tiles, max=cfg.n_tiles)]
-    return SortedEntries(entries=se.entries, tile_starts=edges[:-1].contiguous(),
-                         tile_counts=edges[1:] - edges[:-1], n_valid=se.n_valid)
+    return se.ranged(edges[:-1].contiguous(), edges[1:] - edges[:-1])
 
 
 def _frame_from_entries(entries: torch.Tensor, mesh: Mesh, cfg_key: TileConfig,
@@ -243,7 +242,7 @@ def _frame_from_entries(entries: torch.Tensor, mesh: Mesh, cfg_key: TileConfig,
     mat = _exchange_counts(send, e_cap, mesh)
     sizes, overflow = _clamp_plan(mat)
     t0 = _tick(timings, "counts_ms", t0, dev)
-    routed = _route_entries(se.entries, mat[mesh.rank, :-1], sizes, mesh)
+    routed = _route_entries(se.live(), mat[mesh.rank, :-1], sizes, mesh)
     t0 = _tick(timings, "all_to_all_ms", t0, dev)
     slab = _slab_entries(routed, cfg_key, slab_cfg, mesh.rank * tiles_per_slab)
     flat = display_mode != int(GaussianDisplayMode.SPLAT)

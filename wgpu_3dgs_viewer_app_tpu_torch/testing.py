@@ -79,7 +79,7 @@ def compare_sorted(a, b, stable: bool = False) -> dict:
     sorts of the same slots keep equal keys in slot order, so every payload
     word sits in the same row (the bar K2 meets against its plain version)."""
     _require(a.n_valid == b.n_valid, f"live counts differ: {a.n_valid} vs {b.n_valid}")
-    ea, eb = _u32(a.entries)[: a.n_valid], _u32(b.entries)[: b.n_valid]
+    ea, eb = _u32(a.live()), _u32(b.live())
     _require(np.array_equal(ea[:, 0], eb[:, 0]), "sorted keys differ")
     _require((np.diff(ea[:, 0]) >= 0).all(), "keys not ascending")
     _require((ea[:, 0] != SENTINEL).all(), "sentinel inside the live prefix")

@@ -22,14 +22,18 @@ Records stay in memory, at most `CAP` of them; spans past the cap are
 counted in `dropped`. There is no exporter: a reader takes `records`
 in-process (`frame_roots`, `self_ns`) and `reset()` clears them.
 
-Two counters. `launches`, always on: each kernel wrapper's launches
-(`ops.kernels.LAUNCHES` is this dict), a plain integer increment. And
-`k3_handed`, on the device and only while spans record: the tiles the
-compositor K3's first pass hands to its second, and their chunks left, a
-buffer of two int64 the kernel adds into (the wrapper passes none while
-spans are off, so nothing is counted). Nothing reads it inside a frame:
-`k3_resumed()` copies it to the host when a reader asks, after the window,
-and `reset()` drops it.
+Three counters. `launches`, always on: each kernel wrapper's launches
+(`ops.kernels.LAUNCHES` is this dict), a plain integer increment; a frame
+replayed as a CUDA graph adds the launches its capture made. `k3_handed`,
+on the device and only while spans record: the tiles the compositor K3's
+first pass hands to its second, and their chunks left, a buffer of two
+int64 the kernel adds into (the wrapper passes none while spans are off, so
+nothing is counted). Nothing reads it inside a frame: `k3_resumed()` copies
+it to the host when a reader asks, after the window, and `reset()` zeroes
+it where it lies (a graph captured with it keeps its address). And
+`graph_frames`, only while spans record: the viewer's frames on a card by
+how the host issued them (`replayed`: a kept CUDA graph launched;
+`captured`: captured, then launched; `eager`: launch by launch).
 Every point of a frame path where the host waits for the device (a
 device-to-host read, or a copy from pageable host memory, which torch ends
 with a stream sync) goes through `host_read`, which spans the wait as
@@ -56,8 +60,13 @@ dropped = 0
 launches = {"fused": 0, "sort": 0, "composite": 0, "geometry": 0, "enum_pack": 0,
             "composite_v1": 0, "preprocess": 0, "overlay": 0}
 
-# K3's handed-on tiles and chunks while spans record, by device (`k3_handed`).
+# The viewer's frames by how they were issued, while spans record.
+graph_frames = {"replayed": 0, "captured": 0, "eager": 0}
+
+# K3's handed-on tiles and chunks while spans record, by device
+# (`k3_handed`), and whether a K3 ran with one since the last `reset()`.
 _k3: dict = {}
+_k3_used = False
 
 _collecting = 0
 _local = threading.local()   # .stack: [(record index, frame index)] of the open spans
@@ -153,6 +162,7 @@ def k3_handed(device):
     """While spans record: the (2,) int64 buffer on `device` into which the
     compositor K3's first pass adds the tiles it hands to its second and
     their chunks left (made at first use, zeros); else None."""
+    global _k3_used
     if not (_collecting or _profiler_enabled()):
         return None
     device = torch.device(device)
@@ -160,7 +170,15 @@ def k3_handed(device):
         buf = _k3.get(device)
         if buf is None:
             buf = _k3[device] = torch.zeros(2, dtype=torch.int64, device=device)
+        _k3_used = True
     return buf
+
+
+def count_frame(kind: str) -> None:
+    """Count one viewer frame under `kind` of `graph_frames` while spans
+    record."""
+    if _collecting or _profiler_enabled():
+        graph_frames[kind] += 1
 
 
 def k3_resumed():
@@ -169,7 +187,7 @@ def k3_resumed():
     waits for the device: read it after the frames); None where no K3 ran
     while spans recorded."""
     with _lock:
-        bufs = list(_k3.values())
+        bufs = list(_k3.values()) if _k3_used else []
     if not bufs:
         return None
     tiles, chunks = (int(v) for v in sum(b.cpu() for b in bufs))
@@ -177,12 +195,18 @@ def k3_resumed():
 
 
 def reset() -> None:
-    """Clear the records and K3's handed-on count (call it with no span
-    open); the launch counters are `ops.kernels`'."""
-    global dropped
+    """Clear the records, the graph frame counts and K3's handed-on count
+    (zeroed where it lies; call it with no span open); the launch counters
+    are `ops.kernels`'."""
+    global dropped, _k3_used
     del records[:]
     dropped = 0
-    _k3.clear()
+    for k in graph_frames:
+        graph_frames[k] = 0
+    with _lock:
+        for buf in _k3.values():
+            buf.zero_()
+        _k3_used = False
 
 
 def frame_roots(recs: list) -> list:

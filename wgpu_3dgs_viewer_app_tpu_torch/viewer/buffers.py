@@ -80,27 +80,39 @@ class GaussianBuffers:
 
     # --- edit / selection / mask state ----------------------------------------
 
-    def _bits(self, bits, fill: int) -> torch.Tensor:
+    def _bits(self, bits, fill: int, into: torch.Tensor | None) -> torch.Tensor:
         """(n <= capacity,) bits -> (capacity,) uint8 on the device, the
-        tail filled with `fill`."""
+        tail filled with `fill`; written into `into` where given."""
         bits = torch.as_tensor(bits, device=self.device)
-        out = torch.full((self.capacity,), fill, dtype=torch.uint8, device=self.device)
-        out[: bits.shape[0]] = bits != 0
-        return out
+        if into is None:
+            into = torch.empty((self.capacity,), dtype=torch.uint8, device=self.device)
+        n = bits.shape[0]
+        into[:n] = bits != 0
+        into[n:] = fill
+        return into
+
+    # The setters write into the tensor a gate already has: its address is
+    # part of what a captured frame graph reads (viewer/graph.py), so a mask
+    # drag or a selection changes no address and needs no new capture.
 
     def set_selection(self, bits) -> None:
-        self.selection = self._bits(bits, 0)
+        self.selection = self._bits(bits, 0, self.selection)
 
     def set_mask(self, bits) -> None:
-        self.mask = self._bits(bits, 1)
+        self.mask = self._bits(bits, 1, self.mask)
 
     def set_edits(self, flags, rgb, params) -> None:
         """The whole per-splat edit SoA, (capacity,) / (capacity, 3) /
         (capacity, 4)."""
-        self.edit_flags = _flags_tensor(flags, self.device)
-        self.edit_rgb = torch.as_tensor(rgb, dtype=torch.float32, device=self.device).contiguous()
-        self.edit_params = torch.as_tensor(params, dtype=torch.float32,
-                                           device=self.device).contiguous()
+        new = (_flags_tensor(flags, self.device),
+               torch.as_tensor(rgb, dtype=torch.float32, device=self.device).contiguous(),
+               torch.as_tensor(params, dtype=torch.float32, device=self.device).contiguous())
+        old = (self.edit_flags, self.edit_rgb, self.edit_params)
+        if old[0] is not None and all(o.shape == t.shape for o, t in zip(old, new)):
+            for o, t in zip(old, new):
+                o.copy_(t)
+        else:
+            self.edit_flags, self.edit_rgb, self.edit_params = new
 
     def commit_selection_edit(self, pod_flags: int, rgb, params) -> None:
         """Bake the scene-wide selection edit into the per-splat edit records

@@ -17,6 +17,14 @@ entries carry its rank in the sort key (nearest = 0, `TileConfig.model_bits`
 wide), written into one entry buffer, so one sort and one composite equal
 the per-model frames blended back to front (the over operator is
 associative).
+
+On a card the fused route's `render` issues the frame through
+`graph.FrameGraphs`: one frame buffer set per viewer, the frame's scalars
+in a parameter block, and a CUDA graph of the frame's launches replayed
+once the same launches have been seen twice in a row. There a merged
+frame's models keep fixed row ranges (insertion order) and take their rank
+from the block; equal keys carry one rank, so the stable sort gives the
+entries of the order-laid buffer of `merged_entries`, in its order.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from ..ops.fused import enumerate_entries_fused, preprocess_fused
 from ..ops.sort import sort_entries
 from ..utils import trace
 from .buffers import GaussianBuffers
+from .graph import FrameGraphs
 
 
 def render_frame(pod: dict, comp: Compressions, cfg: TileConfig, view, proj, model,
@@ -64,11 +73,27 @@ class ViewerModel:
         self.visible = True
         self.center = np.zeros(3, np.float32)
         self.gaussians: Optional[Gaussians] = None  # host copy (export path)
+        self._placed = (None, None, None)  # (what they were made from, matrix, centre)
 
     def set_gaussians(self, g: Gaussians) -> None:
         self.gaussians = g
         self.center = g.center()
         self.buffers.upload_all(g)
+
+    def _placement(self) -> tuple:
+        """(model matrix, world centre), made again only when the transform
+        or the centre changed."""
+        t = self.transform
+        made_from = tuple(np.asarray(x, np.float32).tobytes()
+                          for x in (t.pos, t.rot, t.scale, self.center))
+        if made_from != self._placed[0]:
+            mat = t.matrix()
+            self._placed = (made_from, mat, mat[:3, :3] @ self.center + mat[:3, 3])
+        return self._placed[1], self._placed[2]
+
+    def model_matrix(self) -> np.ndarray:
+        """The (4, 4) f32 model matrix of the transform."""
+        return self._placement()[0]
 
 
 class MultiModelViewer:
@@ -98,7 +123,9 @@ class MultiModelViewer:
         self.selection_edit: Optional[GaussianEditPod] = None
         self.highlight = SelectionHighlightPod()
         self.show_highlight = False
-        self.background = np.asarray(background, np.float32)
+        self._background = self.background_tensor = None
+        self.background = background
+        self._graphs = None  # FrameGraphs: the fused frame on a card, made at its first frame
         self._view = np.eye(4, dtype=np.float32)
         self._proj = np.eye(4, dtype=np.float32)
         self._cam_pos = np.zeros(3, np.float32)
@@ -153,6 +180,26 @@ class MultiModelViewer:
 
     # --- world state ----------------------------------------------------------
 
+    @property
+    def background(self) -> np.ndarray:
+        """The (3,) f32 background colour (set it whole: the frame reads the
+        copy on the device)."""
+        return self._background
+
+    @background.setter
+    def background(self, value) -> None:
+        """Set the colour and write it into `background_tensor`, the copy on
+        the viewer's device that the frame reads (in place: a captured frame
+        graph reads it where it lies)."""
+        self._background = np.array(value, np.float32).reshape(3)
+        host = torch.from_numpy(self._background.copy())
+        if self.background_tensor is None:
+            self.background_tensor = host.to(self.device)
+        else:
+            # From pageable memory: on a card the copy waits for the stream.
+            with trace.host_read(self.device.type == "cuda"):
+                self.background_tensor.copy_(host)
+
     def update_camera(self, camera: CameraTrait) -> None:
         self._view = np.asarray(camera.view(), np.float32)
         self._proj = np.asarray(camera.projection(self.cfg.width / self.cfg.height), np.float32)
@@ -182,9 +229,7 @@ class MultiModelViewer:
         keys = [k for k, m in self.models.items() if m.visible and len(m.buffers) > 0]
 
         def depth(k):
-            mat = self.models[k].transform.matrix()
-            c = mat[:3, :3] @ self.models[k].center + mat[:3, 3]
-            return float(np.linalg.norm(c - self._cam_pos))
+            return float(np.linalg.norm(self.models[k]._placement()[1] - self._cam_pos))
 
         return sorted(keys, key=depth, reverse=True)
 
@@ -199,10 +244,10 @@ class MultiModelViewer:
                       display_mode=int(gt.display_mode), **self._gating_kwargs(m, show_unedited))
             if self.fused:
                 return enumerate_entries_fused(m.buffers.pod, self.comp, cfg, self._view,
-                                               self._proj, m.transform.matrix(), model_rank=rank,
+                                               self._proj, m.model_matrix(), model_rank=rank,
                                                out=out, **kw)
             pre = preprocess_fused(m.buffers.pod, self.comp, self._view, self._proj,
-                                   m.transform.matrix(), cfg.width, cfg.height, **kw)
+                                   m.model_matrix(), cfg.width, cfg.height, **kw)
             return enumerate_entries_from_pre(pre, cfg, model_rank=rank, out=out)
 
     def _composite(self, entries: torch.Tensor, cfg: TileConfig) -> torch.Tensor:
@@ -245,11 +290,15 @@ class MultiModelViewer:
                     self.update_camera(camera)
                 order = self.model_order()
             if not order:
-                bg = torch.as_tensor(self.background, device=self.device)
-                return bg.expand(self.cfg.height, self.cfg.width, 3).clone()
+                return self.background_tensor.expand(self.cfg.height, self.cfg.width, 3).clone()
+            if self.fused and self.device.type == "cuda":
+                if self._graphs is None:
+                    self._graphs = FrameGraphs(self)
+                return self._graphs.render(order, show_unedited)
             if len(order) > 1:
                 return self._render_merged(order, show_unedited)
-            return over_background(self.render_model(order[0], show_unedited), self.background)
+            return over_background(self.render_model(order[0], show_unedited),
+                                   self.background_tensor)
 
     def merged_config(self, n_models: int) -> TileConfig:
         """The viewer's tiling with a rank field wide enough for `n_models`."""
@@ -275,7 +324,7 @@ class MultiModelViewer:
         """Several models in one pass: one entry buffer, one sort, one
         composite."""
         entries, cfg_m = self.merged_entries(order, show_unedited)
-        return over_background(self._composite(entries, cfg_m), self.background)
+        return over_background(self._composite(entries, cfg_m), self.background_tensor)
 
 
 class Viewer(MultiModelViewer):
