@@ -17,7 +17,7 @@ libraries are built and loaded in one process. `--parts` picks what runs
   at rank 2 of model_bits 2), and K4, which shares splat.cuh with K1, on
   the config-3 scene (2M, ungated and with the mask and edit gates). The
   two trees' outputs must be equal bit for bit. Each is timed three ways
-  (`chip_smoke.wrapper_times`): CUDA events around 20 calls of the
+  (`card.wrapper_times`): CUDA events around 20 calls of the
   wrapper, the kernel alone under torch.profiler, and the host's time to
   issue a call. Also ptxas's registers and spills of both trees' K1 and K5
   (each tree's fused.cu and enum_pack.cu compiled with this tree's flags).
@@ -27,7 +27,7 @@ libraries are built and loaded in one process. `--parts` picks what runs
   (`mxu`); K6 on the config-1 EntryPlanes at tiles 32, 64 and 128 and in
   flat mode on the config-0 shapes, and at tile 32 also with each of its
   layouts forced (1 and 4 pixels a thread, this tree only). Each time is
-  the mean of 20 calls by CUDA events (`chip_smoke.cuda_ms`). The two
+  the mean of 20 calls by CUDA events (`card.cuda_ms`). The two
   trees' images must agree within 1e-4; whether they are equal bit for bit
   is printed.
 - cells: K3 on the benchmark's own frames (`scripts/profile_port_frame.py`
@@ -64,6 +64,8 @@ import subprocess
 import sys
 import time
 
+import card
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 PKG = "wgpu_3dgs_viewer_app_tpu_torch"
@@ -80,24 +82,18 @@ def load_other(root: str, alias: str = "other_port"):
     return importlib.import_module(f"{alias}.ops")
 
 
-def turns(other, this, reps: int = 20) -> dict:
-    """ms of other() and this() in the order other, this, this, other."""
-    import chip_smoke
-
-    a1, b1, b2, a2 = (chip_smoke.cuda_ms(f, reps) for f in (other, this, this, other))
-    return {"other_ms": [a1, a2], "this_ms": [b1, b2]}
-
-
 def compare(name: str, other, this, reps: int = 20) -> dict:
     """The two trees' images (within 1e-4, and whether bit for bit equal)
-    and their times in turns; prints one line."""
+    and their times in turns (other, this, this, other); prints one line."""
     import torch
 
     a, b = other(), this()
     d = float((a - b).abs().max())
     if d > 1e-4:
         raise AssertionError(f"{name}: this vs other max abs {d} > 1e-4")
-    r = {**turns(other, this, reps), "vs_other_max": d, "bit_equal": bool(torch.equal(a, b))}
+    a1, b1, b2, a2 = (card.cuda_ms(f, reps) for f in (other, this, this, other))
+    r = {"other_ms": [a1, a2], "this_ms": [b1, b2], "vs_other_max": d,
+         "bit_equal": bool(torch.equal(a, b))}
     print(f"{name}: this vs other max abs {d:.3e}, bit for bit {r['bit_equal']}; other "
           f"{r['other_ms']}, this {r['this_ms']} ms", flush=True)
     return r
@@ -119,14 +115,13 @@ def k6_layout(ops, planes, cfg, flat: bool, px: int):
 
 def layouts(ops, name: str, planes, cfg, flat: bool = False) -> dict:
     """K6 at 1 and at 4 pixels a thread, in turns, against its own default."""
-    import chip_smoke
     import torch
 
     auto = ops.composite_tiles(planes, cfg, flat_mode=flat)
     for px in (1, 4):
         if not torch.equal(k6_layout(ops, planes, cfg, flat, px), auto):
             raise AssertionError(f"{name}: K6 at {px} px a thread differs from its default")
-    t = [chip_smoke.cuda_ms(lambda: k6_layout(ops, planes, cfg, flat, px), 20)
+    t = [card.cuda_ms(lambda: k6_layout(ops, planes, cfg, flat, px), 20)
          for px in (1, 4, 4, 1)]
     r = {"px1_ms": [t[0], t[3]], "px4_ms": [t[1], t[2]]}
     print(f"{name}: K6 layouts (this tree), 1 px a thread {r['px1_ms']}, 4 px {r['px4_ms']} ms; "
@@ -148,14 +143,12 @@ def bit_equal(a, b) -> bool:
 
 def entries_ab(name: str, other, this, part: str) -> dict:
     """The two trees' outputs, which must be equal bit for bit, and their
-    times in turns (`chip_smoke.wrapper_times`); prints one line."""
-    import chip_smoke
-
+    times in turns (`card.wrapper_times`); prints one line."""
     equal = bit_equal(other(), this())
     print(f"{name}: this tree's output equals the other's bit for bit: {equal}", flush=True)
     if not equal:
         raise AssertionError(f"{name}: the output differs from the other tree's")
-    t = [chip_smoke.wrapper_times(f, part) for f in (other, this, this, other)]
+    t = [card.wrapper_times(f, part) for f in (other, this, this, other)]
     r = {f"{side}_{k}": [t[i][k], t[j][k]] for side, (i, j) in (("other", (0, 3)),
                                                                 ("this", (1, 2)))
          for k in ("ms", "device_ms", "host_ms")}
@@ -171,15 +164,14 @@ def ptxas_report(root: str) -> dict:
     import tempfile
     from pathlib import Path
 
-    import chip_smoke
     from wgpu_3dgs_viewer_app_tpu_torch.ops import kernels
 
     csrc = Path(root) / PKG / "csrc"
     srcs = [csrc / "fused.cu", csrc / "enum_pack.cu"]
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
         usage = kernels.compile_objects(srcs, [Path(tmp) / f"{p.stem}.o" for p in srcs])
-    rows = {**chip_smoke.ptxas_rows("fused_frontend_kernel", usage),
-            **chip_smoke.ptxas_rows("enum_pack_kernel", usage)}
+    rows = {**card.ptxas_rows("fused_frontend_kernel", usage),
+            **card.ptxas_rows("enum_pack_kernel", usage)}
     for label, u in rows.items():
         print(f"ptxas, {root}: {label}: {u['registers']} registers, {u.get('stack', 0)} B "
               f"stack, {u.get('spill_stores', 0)} B spill stores, {u.get('spill_loads', 0)} B "
@@ -199,13 +191,10 @@ def frontend(old, ops, parent: str) -> dict:
     import numpy as np
     import torch
 
-    import chip_smoke
-    from wgpu_3dgs_viewer_app_tpu_torch.core import ModelTransform
-
     rec = {"ptxas": {"other": ptxas_report(parent), "this": ptxas_report(REPO)}}
     eye = np.eye(4, dtype=np.float32)
-    g1, cam1 = chip_smoke.config1_scene()
-    comp, pod = chip_smoke.pod_tensors(g1, "cuda")
+    g1, cam1 = card.config1_scene()
+    comp, pod = card.pod_tensors(g1, "cuda")
     n = g1.count
     del g1
     cfg1 = ops.TileConfig(1920, 1080, tile=32, max_dup=4)
@@ -215,7 +204,7 @@ def frontend(old, ops, parent: str) -> dict:
     rec["k1_config1"] = entries_ab("K1 ungated, config 1 (6M)",
                                    lambda: old.enumerate_entries_fused(*oargs),
                                    lambda: ops.enumerate_entries_fused(*args), k1)
-    gkw = chip_smoke.gates(n, "cuda")
+    gkw = card.gates(n, "cuda")
     rec["k1_config1_gated"] = entries_ab("K1 gated (every gate), config 1 (6M)",
                                          lambda: old.enumerate_entries_fused(*oargs, **gkw),
                                          lambda: ops.enumerate_entries_fused(*args, **gkw), k1)
@@ -228,16 +217,9 @@ def frontend(old, ops, parent: str) -> dict:
     del pre, pod, args, oargs
     torch.cuda.empty_cache()
 
-    model2 = chip_smoke.config2_models()[1]
-    w, h = chip_smoke.CONFIG2_SIZE
-    comp, pod = chip_smoke.pod_tensors(model2, "cuda")
-    cam = chip_smoke.config2_camera()
-    dx, rot = chip_smoke.CONFIG2_PLACEMENTS[1]
-    mmat = ModelTransform(pos=np.float32([dx, 0, 0]), rot=np.float32([0, rot, 0])).matrix()
-    flags, rgb, params = chip_smoke.config2_edit(model2.count, 1)
-    edit = tuple(torch.from_numpy(a).to("cuda") for a in (flags.view(np.int32), rgb, params))
-    cfg_m = ops.TileConfig(w, h, tile=32, max_dup=4, model_bits=2)
-    args = (pod, comp, cfg_m, cam.view(), cam.projection(w / h), mmat)
+    comp, pod, cfg_m, view, proj, mmat, edit = card.config2_model(1, "cuda")
+    w, h = card.CONFIG2_SIZE
+    args = (pod, comp, cfg_m, view, proj, mmat)
     oargs = (pod, other_comp(comp), *args[2:])
     rec["k1_config2_ranked"] = entries_ab(
         "K1 rank 1 of model_bits 2 + edits, one config-2 model (1M)",
@@ -252,9 +234,9 @@ def frontend(old, ops, parent: str) -> dict:
     torch.cuda.empty_cache()
 
     # K4 shares splat.cuh with K1: the config-3 shapes, ungated and gated.
-    g3, cam3 = chip_smoke.config3_scene()
-    comp, pod = chip_smoke.pod_tensors(g3, "cuda")
-    g4 = {k: v for k, v in chip_smoke.gates(g3.count, "cuda", seed=5).items()
+    g3, cam3 = card.config3_scene()
+    comp, pod = card.pod_tensors(g3, "cuda")
+    g4 = {k: v for k, v in card.gates(g3.count, "cuda", seed=5).items()
           if k in ("mask_bits", "edit")}
     args = (pod, comp, cam3.view(), cam3.projection(1920 / 1080), eye, 1920, 1080)
     oargs = (pod, other_comp(comp), *args[2:])
@@ -273,15 +255,13 @@ def compositors(old, ops, smi: str) -> dict:
     import numpy as np
     import torch
 
-    import chip_smoke
-
-    g1, cam1 = chip_smoke.config1_scene()
-    comp, pod = chip_smoke.pod_tensors(g1, "cuda")
+    g1, cam1 = card.config1_scene()
+    comp, pod = card.pod_tensors(g1, "cuda")
     cfg1 = ops.TileConfig(1920, 1080, tile=32, max_dup=4)
     ent1 = ops.enumerate_entries_fused(pod, comp, cfg1, cam1.view(), cam1.projection(1920 / 1080),
                                        np.eye(4, dtype=np.float32))
     del pod, g1
-    v2 = chip_smoke.config2_viewer(chip_smoke.config2_models(), "cuda")
+    v2 = card.config2_viewer(card.config2_models(), "cuda")
     ent2, cfg2 = v2.merged_entries(v2.model_order())
     del v2
     torch.cuda.empty_cache()
@@ -300,11 +280,11 @@ def compositors(old, ops, smi: str) -> dict:
     del ent1, ent2
     torch.cuda.empty_cache()
     # K6 on the config-1 EntryPlanes at tiles 32, 64 and 128.
-    g1, cam1 = chip_smoke.config1_scene()
-    comp, pod = chip_smoke.pod_tensors(g1, "cuda")
+    g1, cam1 = card.config1_scene()
+    comp, pod = card.pod_tensors(g1, "cuda")
     for tile in (32, 64, 128):
         cfg = ops.TileConfig(1920, 1080, tile=tile, max_dup=4)
-        planes = chip_smoke.v1_planes(pod, comp, cfg, cam1)
+        planes = card.v1_planes(pod, comp, cfg, cam1)
         key = "k6" if tile == 32 else f"k6_tile{tile}"
         rec["config1"][key] = compare(f"config1 K6 tile {tile} ({planes.ent.shape[1]} rows)",
                                       lambda: old.composite_tiles(planes, cfg),
@@ -314,10 +294,10 @@ def compositors(old, ops, smi: str) -> dict:
         del planes
     del pod
     # K6 in flat mode on the config-0 shapes (sparse tiles).
-    g0, cam0 = chip_smoke.config0_scene()
-    comp0, pod0 = chip_smoke.pod_tensors(g0, "cuda")
+    g0, cam0 = card.config0_scene()
+    comp0, pod0 = card.pod_tensors(g0, "cuda")
     cfg0 = ops.TileConfig(800, 600, tile=32, max_dup=4)
-    planes0 = chip_smoke.v1_planes(pod0, comp0, cfg0, cam0, sh_degree=0, display_mode=2)
+    planes0 = card.v1_planes(pod0, comp0, cfg0, cam0, sh_degree=0, display_mode=2)
     rec["config0_flat_k6"] = compare(
         "config0 flat K6", lambda: old.composite_tiles(planes0, cfg0, flat_mode=True),
         lambda: ops.composite_tiles(planes0, cfg0, flat_mode=True))
@@ -332,9 +312,7 @@ def k3_device_ms(fn, reps: int = 20):
     (one or two passes) under torch.profiler, and the other device
     operations fn() ran beside them, by name; (None, {}) where the profiler
     saw no device time."""
-    import chip_smoke
-
-    found = chip_smoke.device_kernel_ms(fn, reps)
+    found = card.device_kernel_ms(fn, reps)
     if found is None:
         return None, {}
     k3 = sum(v for k, v in found[0].items() if "composite_v2_kernel" in k)
@@ -391,16 +369,15 @@ def cells(old, ops, yaws: int, seed: int) -> dict:
 
 def frame(old) -> dict:
     """The config-1 frame through each tree's `Viewer.render`, in turns."""
-    import chip_smoke
     from wgpu_3dgs_viewer_app_tpu_torch.viewer import Viewer
 
-    g1, cam1 = chip_smoke.config1_scene()
+    g1, cam1 = card.config1_scene()
     old_viewer = importlib.import_module("other_port.viewer")
     views = {"other": old_viewer.Viewer(g1, 1920, 1080, tile=32, max_dup=4, device="cuda"),
              "this": Viewer(g1, 1920, 1080, tile=32, max_dup=4, device="cuda")}
     frames = {"other": [], "this": []}
     for side in ("other", "this", "this", "other"):
-        ms = chip_smoke.timed_frames(lambda: views[side].render(cam1))[0]
+        ms = card.timed_frames(lambda: views[side].render(cam1))
         frames[side].append(ms)
     d = float((views["this"].render(cam1) - views["other"].render(cam1)).abs().max())
     rec = {"other_ms": frames["other"], "this_ms": frames["this"], "vs_other_max": d}
@@ -415,11 +392,10 @@ def session(old) -> dict:
     import numpy as np
     import torch
 
-    import chip_smoke
     from wgpu_3dgs_viewer_app_tpu_torch import app
 
-    g, _ = chip_smoke.config1_scene()
-    w, h = chip_smoke.CONFIG4_SIZE
+    g, _ = card.config1_scene()
+    w, h = card.CONFIG4_SIZE
     apps = {"other": importlib.import_module("other_port.app"), "this": app}
     masks = {"other": importlib.import_module("other_port.mask"),
              "this": importlib.import_module("wgpu_3dgs_viewer_app_tpu_torch.mask")}
@@ -445,13 +421,13 @@ def session(old) -> dict:
         s.viewer.add_model("config4.ply", g)
         s.selected_key = "config4.ply"
         mk = masks[side]
-        for kind, pos, scale in chip_smoke.CONFIG4_SHAPES:
+        for kind, pos, scale in card.CONFIG4_SHAPES:
             s.mask.add_shape(mk.MaskShape(kind=mk.MaskShapeKind(kind),
                                           pos=np.array(pos, np.float32),
                                           scale=np.full(3, scale, np.float32)))
-        s.mask.op_code = chip_smoke.CONFIG4_OP
+        s.mask.op_code = card.CONFIG4_OP
         s.evaluate_mask(s.mask.parse_op())
-        assert all(s.locate_hit(px, 0, i) for i, px in enumerate(chip_smoke.CONFIG4_HITS))
+        assert all(s.locate_hit(px, 0, i) for i, px in enumerate(card.CONFIG4_HITS))
         sessions[side], servers[side] = s, a.ViewerServer(s)
         frames[side] = s.viewer.render(s.camera.control)
     rec = {k: {"other": [], "this": []} for k in ("update_ms", "render_ms", "overlay_ms",
@@ -460,10 +436,10 @@ def session(old) -> dict:
     orbit = {"type": "orbit", "dx": 10.0, "dy": 0.0}
     for side in ("other", "this", "this", "other"):
         s, vs = sessions[side], servers[side]
-        rec["update_ms"][side].append(chip_smoke.timed_frames(s.update)[0])
-        rec["render_ms"][side].append(chip_smoke.cuda_ms(
+        rec["update_ms"][side].append(card.timed_frames(s.update))
+        rec["render_ms"][side].append(card.cuda_ms(
             lambda: s.viewer.render(s.camera.control), 5))
-        rec["overlay_ms"][side].append(chip_smoke.cuda_ms(
+        rec["overlay_ms"][side].append(card.cuda_ms(
             lambda: s.render_overlays(frames[side]), 10))
         rows = []
         for i in range(7):

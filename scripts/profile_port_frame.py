@@ -12,16 +12,16 @@ few frames of a BASELINE cell, device time per kernel and the idle share.
     python3 scripts/profile_port_frame.py --tiles --scene inria6m --yaws 5  # the benchmark's
 
 Config 1 is the plain orbit frame; config 3 is the selection-and-editing
-step that `chip_smoke.py` phase 5 times (`chip_smoke.config3_step`: query
-geometry -> select_rect -> set_selection -> selection edit + highlight ->
-Viewer.render); both at 1920x1080. Config 2 is the merged three-model frame
-that phase 6 times (`chip_smoke.config2_frame`) at 1920x1088, on the fused
-front-end route (K1 per model) or the staged one (K8 + K5 per model).
-Config 1 also runs on the two routes of `chip_smoke.py` phase 7: the v1
-chain (K8 -> build_tile_lists -> build_entry_planes -> composite_tiles,
-`chip_smoke.v1_frame`) and the row-major v2 frame (K1 ->
-K2 -> composite_tiles_v2(transposed=False, mxu=True), the one v2 compositor K3
-in its quadratic-basis form, `chip_smoke.rows_frame`).
+step (`card.config3_step`: query geometry -> select_rect -> set_selection
+-> selection edit + highlight -> Viewer.render); both at 1920x1080.
+Config 2 is the merged three-model frame (`card.config2_viewer`) at
+1920x1088, on the fused front-end route (K1 per model) or the staged one
+(K8 + K5 per model). Config 1 also runs on two other routes: the v1 chain
+(K8 -> build_tile_lists -> build_entry_planes -> composite_tiles,
+`card.v1_frame`) and the row-major v2 frame (K1 -> K2 ->
+composite_tiles_v2(transposed=False, mxu=True), the one v2 compositor K3
+in its quadratic-basis form, `card.rows_frame`). The scenes and timers are
+`scripts/card.py`'s.
 All at SH 3, norm8 SH + half cov3d, tile 32, max_dup 4. Prints one line
 per kernel (ms per frame, share of device time), the device's busy and
 wall time over the profiled frames, and the card's name and power limit.
@@ -43,6 +43,8 @@ import os
 import subprocess
 import sys
 
+import card
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
@@ -57,10 +59,9 @@ def config1_sorted(g, cam) -> tuple:
     """The config-1 frame's sorted entries, as `Viewer.render` makes them."""
     import numpy as np
 
-    import chip_smoke
     from wgpu_3dgs_viewer_app_tpu_torch.ops import TileConfig, enumerate_entries_fused
 
-    comp, pod = chip_smoke.pod_tensors(g, "cuda")
+    comp, pod = card.pod_tensors(g, "cuda")
     cfg = TileConfig(1920, 1080, tile=32, max_dup=4)
     proj = cam.projection(1920 / 1080)
     return sorted_frame(enumerate_entries_fused(pod, comp, cfg, cam.view(), proj,
@@ -80,12 +81,11 @@ def tile_walk(se, cfg, top: int = 6) -> dict:
     K3 does not split by a budget). Prints one line; returns the numbers."""
     import torch
 
-    import chip_smoke
     from wgpu_3dgs_viewer_app_tpu_torch.ops import composite_tiles_plain_v2, composite_tiles_v2
     from wgpu_3dgs_viewer_app_tpu_torch.utils import trace
 
     def ms(s, reps):
-        return chip_smoke.cuda_ms(lambda: composite_tiles_v2(s, cfg), reps)
+        return card.cuda_ms(lambda: composite_tiles_v2(s, cfg), reps)
 
     zero = se.ranged(se.tile_starts, se.tile_counts.new_zeros(se.tile_counts.shape))
     whole, empty = ms(se, 20), ms(zero, 20)
@@ -101,7 +101,7 @@ def tile_walk(se, cfg, top: int = 6) -> dict:
     slow = [{"tile": t, "alone_us": alone[t] * 1e3, "chunks": walked[t],
              "entries": int(se.tile_counts[t])} for t in order[:top]]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    found = chip_smoke.device_kernel_ms(lambda: composite_tiles_v2(se, cfg), 20)
+    found = card.device_kernel_ms(lambda: composite_tiles_v2(se, cfg), 20)
     kernels_ms = ({} if found is None else
                   {k: v for k, v in found[0].items() if "composite_v2_kernel" in k})
     trace.reset()
@@ -182,7 +182,6 @@ def cell_walks(scene: str, yaws: int, seed: int) -> list:
 def main() -> int:
     import torch
 
-    import chip_smoke
     from wgpu_3dgs_viewer_app_tpu_torch.ops import TileConfig, kernels
     from wgpu_3dgs_viewer_app_tpu_torch.viewer import Viewer
 
@@ -222,28 +221,28 @@ def main() -> int:
                 json.dump({"scene": args.scene, "seed": args.seed, "smi": smi, "yaws": walks}, f)
         return 0
     if args.config == 2:
-        models = chip_smoke.config2_models()
+        models = card.config2_models()
         n_splats, what = sum(g.count for g in models), f"config 2 ({args.route} route)"
-        v = chip_smoke.config2_viewer(models, "cuda")
-        step = chip_smoke.config2_frame(v, args.route == "fused")
+        v = card.config2_viewer(models, "cuda", fused=args.route == "fused")
+        step = v.render
         sorted_entries = lambda: sorted_frame(*v.merged_entries(v.model_order()))
     elif args.config == 1 and args.route in ("v1", "rows"):
-        g, cam = chip_smoke.config1_scene()
+        g, cam = card.config1_scene()
         n_splats, what = g.count, f"config 1 ({args.route} route)"
-        comp, pod = chip_smoke.pod_tensors(g, "cuda")
+        comp, pod = card.pod_tensors(g, "cuda")
         cfg = TileConfig(1920, 1080, tile=32, max_dup=4)
-        step = (chip_smoke.v1_frame(pod, comp, cfg, cam) if args.route == "v1"
-                else chip_smoke.rows_frame(pod, comp, cfg, cam))
+        step = (card.v1_frame(pod, comp, cfg, cam) if args.route == "v1"
+                else card.rows_frame(pod, comp, cfg, cam))
     else:
-        g, cam = chip_smoke.config1_scene() if args.config == 1 else chip_smoke.config3_scene()
+        g, cam = card.config1_scene() if args.config == 1 else card.config3_scene()
         n_splats, what = g.count, f"config {args.config}"
         v = Viewer(g, 1920, 1080, tile=32, max_dup=4, device="cuda")
         v.update_camera(cam)
-        step = v.render if args.config == 1 else chip_smoke.config3_step(v)
+        step = v.render if args.config == 1 else card.config3_step(v)
         sorted_entries = lambda: config1_sorted(g, cam)
 
     step()
-    wall, busy, rows = chip_smoke.profile_frames(step, args.frames)
+    wall, busy, rows = card.profile_frames(step, args.frames)
     print(f"{what}: {n_splats} splats, {args.frames} frames, {wall:.3f} ms wall "
           f"({wall / args.frames:.3f} ms/frame under the profiler), device busy {busy:.3f} ms, "
           f"idle share {1 - busy / wall:.3f}")

@@ -15,7 +15,9 @@ frame; the JPEG encoder's bytes on the card against the CPU's, the web
 viewer's `frame_jpeg` over a session on the card, the sharded renderer
 over NCCL at world size 1 against the single-device frame, and the
 overlay kernel K9 bit for bit its plain versions (segments, tint, ring, in
-every combination) and in the session's frame.
+every combination) and in the session's frame. At the end, end to end at
+small sizes, the paths no benchmark cell runs; then K1-K6 and K8 against
+their plain versions at the shapes of BASELINE configs 1-3 (`scripts/card.py`).
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -26,24 +28,28 @@ without JAX (from the repo root):
 
 import dataclasses
 import io
+import json
 import math
 import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 from test_golden import assert_golden_close
-from wgpu_3dgs_viewer_app_tpu_torch.app import (Action, GaussianSplattingSession,
+from wgpu_3dgs_viewer_app_tpu_torch.app import (Action, ExportChoice, GaussianSplattingSession,
                                                 MeasurementHitPair, SceneCommand,
-                                                SceneCommandKind, SelectionMethod, ViewerServer)
+                                                SceneCommandKind, SelectionEdit, SelectionMethod,
+                                                ViewerServer, export_models, make_handler)
 from wgpu_3dgs_viewer_app_tpu_torch.core import CameraOrbitControl
 from wgpu_3dgs_viewer_app_tpu_torch.core import edit as tedit
 from wgpu_3dgs_viewer_app_tpu_torch.core.lines import (rasterize_lines, rasterize_lines_plain,
                                                        segment_table)
 from wgpu_3dgs_viewer_app_tpu_torch.data import (
-    ALL_COMPRESSIONS, flat_pod_to_words, make_random_scene, pack_gaussians, pod_to_tensors,
-    read_ply, write_ply)
+    ALL_COMPRESSIONS, Compressions, Cov3dCompression, ShCompression, flat_pod_to_words,
+    make_random_scene, pack_gaussians, pod_to_tensors, read_ply, read_ply_header, write_ply)
+from wgpu_3dgs_viewer_app_tpu_torch.data.compression import cov3d_components
 from wgpu_3dgs_viewer_app_tpu_torch.app.measurement import measurement_lines
 from wgpu_3dgs_viewer_app_tpu_torch.mask import MaskShape, MaskShapeKind
 from wgpu_3dgs_viewer_app_tpu_torch.mask.gizmo import gizmo_lines
@@ -57,13 +63,19 @@ from wgpu_3dgs_viewer_app_tpu_torch.ops import (
     preprocess_geometry_plain, sort_entries, sort_entries_plain)
 from wgpu_3dgs_viewer_app_tpu_torch.ops.binning import tile_list_entries
 from wgpu_3dgs_viewer_app_tpu_torch.ops.composite import composite_budget, composite_launches
-from wgpu_3dgs_viewer_app_tpu_torch.query import QuerySelectionOp, QueryToolset
+from wgpu_3dgs_viewer_app_tpu_torch.query import (
+    MeasurementHitMethod, QuerySelectionOp, QueryToolset, apply_query_pod, combine_selection,
+    query_hit, sample_texture_at_centers, select_rect)
 from wgpu_3dgs_viewer_app_tpu_torch.query.overlay import (overlay_cursor_ring_plain,
                                                           overlay_texture_plain)
 from wgpu_3dgs_viewer_app_tpu_torch.testing import (compare_entries, compare_preprocess,
                                                     compare_preprocess_bits, compare_sorted)
 from wgpu_3dgs_viewer_app_tpu_torch.utils import jpeg, trace
 from wgpu_3dgs_viewer_app_tpu_torch.viewer import MultiModelViewer, Viewer, render_frame
+
+sys.path.append(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "scripts"))
+import card  # noqa: E402  (scripts/card.py: the BASELINE scenes, shared with the card scripts)
 
 pytestmark = pytest.mark.cuda
 
@@ -135,32 +147,18 @@ def test_frontend_kernel_matches_plain(dev, ci, deg, mode, d, n):
 
 
 
-SEL_EDIT = tedit.GaussianEditPod(tedit.EDIT_FLAG_ENABLED, (0.15, 1.2, 1.0), 0.1, 0.2, 1.0, 0.8)
-HIGHLIGHT = np.float32([1.0, 0.0, 1.0, 0.4])
 GATE_PATTERNS = {"mask": ("mask",), "edit": ("edit",), "sel_edit": ("sel_edit",),
                  "highlight": ("highlight",), "sel_edit+highlight": ("sel_edit", "highlight"),
                  "all": ("mask", "edit", "sel_edit", "highlight")}
+GATE_KEYS = {"mask": ("mask_bits",), "edit": ("edit",),
+             "sel_edit": ("selection_bits", "selection_edit"),
+             "highlight": ("selection_bits", "highlight_rgba")}
 
 
 def _gates(n, dev, which, seed=3):
-    """Gate tensors in the dtypes the kernels read, from one numpy seed."""
-    rng = np.random.default_rng(seed)
-    kw = {}
-    if "mask" in which:
-        kw["mask_bits"] = torch.from_numpy((rng.random(n) > 0.25).astype(np.uint8)).to(dev)
-    if "edit" in which:
-        flags = rng.choice(np.uint32([0, 1, 1, 3, 5]), n).view(np.int32)
-        rgb = rng.uniform([-1.0, 0.5, 0.5], [1.0, 1.5, 1.5], (n, 3)).astype(np.float32)
-        params = rng.uniform([-0.3, -0.5, 0.5, 0.3], [0.3, 0.5, 2.0, 1.0], (n, 4))
-        params = params.astype(np.float32)
-        kw["edit"] = tuple(torch.from_numpy(a).to(dev) for a in (flags, rgb, params))
-    if "sel_edit" in which or "highlight" in which:
-        kw["selection_bits"] = torch.from_numpy((rng.random(n) > 0.5).astype(np.uint8)).to(dev)
-    if "sel_edit" in which:
-        kw["selection_edit"] = SEL_EDIT.as_arrays()
-    if "highlight" in which:
-        kw["highlight_rgba"] = HIGHLIGHT
-    return kw
+    """The gates `which` of `card.gates`, in the dtypes the kernels read."""
+    keys = {k for w in which for k in GATE_KEYS[w]}
+    return {k: v for k, v in card.gates(n, dev, seed).items() if k in keys}
 
 
 @pytest.mark.parametrize("pattern", list(GATE_PATTERNS))
@@ -292,8 +290,8 @@ def test_gate_wrappers_reject_bad_inputs(dev):
         ({"edit": (flags.long(), rgb, params)}, "edit flags"),
         ({"edit": (flags, rgb[:, :2].contiguous(), params)}, "edit rgb"),
         ({"edit": (flags, rgb, params.cpu())}, "edit params"),
-        ({"selection_bits": good["selection_bits"].float(), "highlight_rgba": HIGHLIGHT},
-         "selection_bits"),
+        ({"selection_bits": good["selection_bits"].float(),
+          "highlight_rgba": good["highlight_rgba"]}, "selection_bits"),
     ]
     before = dict(kernels.LAUNCHES)
     for kw, name in bad:
@@ -583,8 +581,9 @@ def test_gated_viewer_on_card_matches_cpu(dev):
         b.commit_selection_edit(tedit.EDIT_FLAG_ENABLED, (0.3, 0.8, 1.1), (0.1, 0.3, 1.2, 0.7))
         b.set_selection(second.astype(np.uint8))
         b.set_mask(mask.astype(np.uint8))
-        v.update_selection_edit(SEL_EDIT)
-        v.update_selection_highlight(tedit.SelectionHighlightPod((1.0, 0.0, 1.0, 0.4)), True)
+        sel_edit, highlight = card.selection_pods(0.8)
+        v.update_selection_edit(sel_edit)
+        v.update_selection_highlight(highlight, True)
         kernels.reset_launch_counts()
         imgs.append(v.render(cam).cpu())
         if device == dev:
@@ -683,28 +682,17 @@ def test_fused_kernel_with_rank_matches_plain(dev, gated, n, d):
 def test_merged_viewer_on_card_matches_cpu(dev, fused):
     """Three models merged on the card (either front-end route) vs the plain
     path on the CPU: the golden gate; and the launch counts of one frame."""
-    views = {}
-    for where in (dev, "cpu"):
-        v = MultiModelViewer(320, 192, tile=16, max_dup=8, device=where, fused=fused)
-        for i, (dx, rot) in enumerate(((-1.0, 0.0), (0.0, 40.0), (1.0, -40.0))):
-            g = make_random_scene(5000, seed=i, extent=1.2, scale_range=(0.01, 0.04))
-            m = v.add_model(f"m{i}", g)
-            v.update_model_transform(f"m{i}", ModelTransform(pos=np.float32([dx, 0, 0]),
-                                                             rot=np.float32([0, rot, 0])))
-            flags, rgb, params = tedit.make_edit_soa(g.count)
-            flags[:] = tedit.EDIT_FLAG_ENABLED
-            rgb[:] = (0.08 * i, 1.1, 1.0)
-            m.buffers.set_edits(flags, rgb, params)
-        views[str(where)] = v
+    models = [make_random_scene(5000, seed=i, extent=1.2, scale_range=(0.01, 0.04))
+              for i in range(3)]
+    views = {str(where): card.config2_viewer(models, where, fused, size=(320, 192),
+                                             placements=((-1.0, 0.0), (0.0, 40.0), (1.0, -40.0)),
+                                             tile=16, max_dup=8) for where in (dev, "cpu")}
     cam = CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -4.5))
     kernels.reset_launch_counts()
     got = views[str(dev)].render(cam)
     front = {"fused": 3} if fused else {"preprocess": 3, "enum_pack": 3}
     assert kernels.LAUNCHES == _only(sort=1, composite=1, **front)
-    ref = views["cpu"].render(cam)
-    img, gold = (np.clip(x.cpu().numpy() * 255.0, 0, 255).astype(np.uint8).astype(np.int16)
-                 for x in (got, ref))
-    assert_golden_close(img, gold)
+    assert_golden_close(_u8(got.cpu()), _u8(views["cpu"].render(cam)))
 
 
 def _v1_pre(dev, n=600, w=256, h=192, mode=0, seed=4):
@@ -910,13 +898,15 @@ def test_viewer_server_frame_jpeg_on_card(dev):
 
 def test_sharded_frame_on_card_matches_render_frame(dev):
     """`parallel.render_sharded` over NCCL at world size 1 (an in-process
-    group): K8 and K5 once, K2 twice (local and owner sort), K3 once, and the
-    image bit for bit `render_frame`'s; the merged two-model frame likewise
-    against the single-device merged entries on the plain preprocess."""
+    group): a mesh of one rank on the card; K8 and K5 once, K2 twice (local
+    and owner sort), K3 once, no overflow, and the image bit for bit
+    `render_frame`'s; the merged two-model frame likewise against the
+    single-device merged entries on the plain preprocess."""
     import torch.distributed as dist
 
     from wgpu_3dgs_viewer_app_tpu_torch.parallel import (make_mesh, render_frame_sharded_multi,
                                                          render_sharded, shard_pod)
+    from wgpu_3dgs_viewer_app_tpu_torch.parallel.render_sharded import last_stats
 
     comp = ALL_COMPRESSIONS[5]
     cfg = TileConfig(256, 200, tile=16, max_dup=8)
@@ -926,10 +916,12 @@ def test_sharded_frame_on_card_matches_render_frame(dev):
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
         mesh = make_mesh()
+        assert mesh.world == 1 and mesh.device.type == "cuda"
         pods = [shard_pod(w, mesh) for w in words]
         kernels.reset_launch_counts()
         img = render_sharded(pods[0], mesh, comp, cfg, view, proj, sh_degree=3)
         assert dict(kernels.LAUNCHES) == _only(preprocess=1, enum_pack=1, sort=2, composite=1)
+        assert last_stats() == {"overflow": 0, "n_devices": 1}
         ref = render_frame(pods[0], comp, cfg, view, proj, EYE, sh_degree=3)
         assert torch.equal(img, over_background(ref, (0.0, 0.0, 0.0)))
         models = np.stack([EYE, EYE])
@@ -983,7 +975,7 @@ def _overlay_inputs(h: int, w: int, m: int, seed: int = 0):
 @pytest.mark.parametrize("h,w", [(96, 128), (1088, 1920)])
 def test_overlay_kernel_matches_plain(dev, h, w, stages, m):
     """K9 in one launch against the plain versions run in turn on the card,
-    bit for bit (max abs 0)."""
+    bit for bit (max abs 0), into a new image."""
     img, segs, tex, center, radius = _overlay_inputs(h, w, m)
     img, tex = img.to(dev), tex.to(dev)
     want, table, texture, cursor = img, None, None, None
@@ -1000,6 +992,7 @@ def test_overlay_kernel_matches_plain(dev, h, w, stages, m):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == _only(overlay=1)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert got.data_ptr() != img.data_ptr()   # a new image, also with nothing to draw
     if stages == "lines":
         assert torch.equal(rasterize_lines(img, *segs), got)
     if m and "lines" in stages:
@@ -1212,3 +1205,543 @@ def test_two_renders_without_a_sync_are_both_right(dev):
     torch.cuda.synchronize()
     for cam, img in zip(cams, frames):
         assert torch.equal(img.view(torch.int32), _eager_frame(v, cam).view(torch.int32))
+
+
+# --- paths no benchmark cell runs, end to end on the card at small sizes ----------------
+
+EXIT_TOL = 1.0 / 255.0 + 1e-5   # what a tile's chunk exit may leave out of a channel
+
+
+def _frame_ok(img, w, h, min_coverage):
+    """Shape, finite values and the share of covered pixels of a frame."""
+    assert img.shape == (h, w, 3) and bool(torch.isfinite(img).all())
+    coverage = float((img.amax(dim=-1) > 1.0 / 255.0).float().mean())
+    assert coverage > min_coverage, coverage
+
+
+def test_cli_render_on_card_meets_golden_and_orbit_sequence(dev, tmp_path):
+    """`render --device cuda` on the golden fixture meets the golden gate
+    against tests/golden/golden_256.png; `--frames 3 --orbit-step 20` writes
+    three distinct frames, each byte for byte the single render at its yaw."""
+    from wgpu_3dgs_viewer_app_tpu_torch.app.cli import main as cli
+    from wgpu_3dgs_viewer_app_tpu_torch.utils.png import read_png
+
+    g = read_ply(os.path.join(REPO, "tests", "fixtures", "trained_like_100k.ply"))
+    ply = str(tmp_path / "golden_20k.ply")
+    with open(ply, "wb") as f:
+        write_ply(f, g.select(np.arange(g.count) < 20_000))  # as scripts/gen_golden.py crops
+    args = ["render", ply, "--width", "256", "--height", "256", "--max-dup", "16",
+            "--device", "cuda"]
+    assert cli(args + ["-o", str(tmp_path / "golden.png"), "--orbit", "30"]) == 0
+    gold = read_png(os.path.join(REPO, "tests", "golden", "golden_256.png"))
+    assert_golden_close(read_png(str(tmp_path / "golden.png")).astype(np.int16),
+                        gold.astype(np.int16))
+    assert cli(args + ["-o", str(tmp_path / "seq.png"), "--frames", "3",
+                       "--orbit-step", "20"]) == 0
+    frames = []
+    for i in range(3):
+        assert cli(args + ["-o", str(tmp_path / f"single_{i}.png"), "--orbit", str(20 * i)]) == 0
+        frames.append((tmp_path / f"seq_{i:03d}.png").read_bytes())
+        assert frames[-1] == (tmp_path / f"single_{i}.png").read_bytes(), i
+    assert len(set(frames)) == 3
+
+
+def test_selection_step_on_card(dev):
+    """BASELINE config 3's step (K4 -> `select_rect` -> a selection edit and
+    highlight -> `Viewer.render`) changes the rect's pixels and no far one;
+    then a brush ADD, a texture-mode rect resolved as `select_rect` within
+    1%, committed edits rendering as the live edit, `show_unedited` as the
+    ungated frame, half the splats masked, and hits matching the CPU's."""
+    w, h = 1280, 720
+    rect = ((w * 0.21, h * 0.19), (w * 0.73, h * 0.74))  # config 3's, at this size
+    g = make_random_scene(600_000, seed=1, extent=2.0, scale_range=(0.004, 0.02))
+    v = Viewer(g, w, h, tile=32, max_dup=4, device=dev)
+    v.update_camera(CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -6)))
+    m = v.models["model"]
+    b = m.buffers
+    # Alpha 1: a selected splat's tail can reach past the far check's 70-px
+    # margin, where a lower alpha moves pixels by rounding (2.4e-7, the CPU too).
+    sel_edit, highlight = card.selection_pods(1.0)
+
+    def geometry(**kw):
+        return preprocess_geometry_fused(b.pod, v.comp, v._view, v._proj, m.transform.matrix(),
+                                         w, h, display_mode=0, **kw)
+
+    def ungated():
+        se = build_sorted_entries_fused(b.pod, v.comp, v.cfg, v._view, v._proj,
+                                        m.transform.matrix())
+        return over_background(composite_tiles_v2(se, v.cfg), v.background)
+
+    kernels.reset_launch_counts()
+    img, pre, bits = card.config3_step(v, rect)()
+    assert kernels.LAUNCHES == _only(geometry=1, fused=1, sort=1,
+                                     composite=composite_launches(32))
+    _frame_ok(img, w, h, 0.2)
+    selected = int(bits.sum())
+    assert 0 < selected < g.count
+    plain = ungated()
+    (x0, y0), (x1, y1) = rect
+    far = torch.ones((h, w), dtype=torch.bool, device=img.device)
+    far[max(int(y0) - 70, 0):int(y1) + 70, max(int(x0) - 70, 0):int(x1) + 70] = False
+    assert torch.equal(img[far], plain[far])
+    inside = (img - plain)[int(y0) + 35:int(y1) - 35, int(x0) + 35:int(x1) - 35]
+    assert float(inside.abs().mean()) > 0.02
+
+    ts = QueryToolset(w, h, device=dev)   # a brush stroke, ADD, in immediate mode
+    ts.update_brush_radius(20.0)
+    ts.start(QueryToolset.BRUSH, QuerySelectionOp.ADD, (w * 0.1, h * 0.83))
+    ts.update_pos((w * 0.88, h * 0.88))
+    ts.end()
+    sel = b.selection
+    for pod in ts.query():
+        sel = apply_query_pod(pre, sel, pod)
+    assert int(sel.sum()) > selected and bool((sel >= b.selection).all())
+    b.set_selection(sel)
+    ts.set_use_texture(True)   # a rect painted into the query texture
+    a, z = (w * 0.3, h * 0.2), (w * 0.7, h * 0.8)
+    ts.start(QueryToolset.RECT, QuerySelectionOp.ADD, a)
+    ts.update_pos(z)
+    op, tex = ts.end()
+    tex_bits, rect_bits = sample_texture_at_centers(pre, tex), select_rect(pre, a, z)
+    mismatch = int((tex_bits != rect_bits).sum())
+    assert int(tex_bits.sum()) > 0 and mismatch <= 0.01 * int(rect_bits.sum()), mismatch
+    b.set_selection(combine_selection(b.selection, tex_bits, op))
+
+    live = v.render()
+    b.commit_selection_edit(*sel_edit.as_arrays())
+    v.update_selection_edit(None)
+    assert torch.equal(v.render(), live)
+    v.update_selection_highlight(highlight, False)
+    unedited = v.render(show_unedited=True)
+    assert torch.equal(unedited, ungated())
+    edited = v.render()
+    assert not torch.equal(unedited, edited)
+
+    b.set_mask((np.arange(g.count) % 2).astype(np.uint8))
+    masked = v.render()
+    _frame_ok(masked, w, h, 0.1)
+    assert not torch.equal(masked, edited)
+    kernels.reset_launch_counts()
+    masked_pre = geometry(mask_bits=b.mask, edit=(b.edit_flags, b.edit_rgb, b.edit_params))
+    assert kernels.LAUNCHES == _only(geometry=1)
+    n_valid, n_all = int(masked_pre.valid.sum()), int(pre.valid.sum())
+    assert abs(n_valid - n_all / 2) <= 0.01 * n_all
+    cpu_pre = type(masked_pre)(**{f: getattr(masked_pre, f).cpu()
+                                  for f in masked_pre.__dataclass_fields__})
+    for method in MeasurementHitMethod:
+        found, pos = query_hit(masked_pre, (w / 2, h / 2), v._view, v._proj, w, h, method)
+        found_c, pos_c = query_hit(cpu_pre, (w / 2, h / 2), v._view, v._proj, w, h, method)
+        assert bool(found) and bool(found_c), method
+        assert float((pos.cpu() - pos_c).abs().max()) <= 1e-4, method
+
+
+def test_merged_frame_on_card_routes_order_and_compressions(dev):
+    """BASELINE config 2 merged on the card: the staged route within the
+    golden gate of the fused; the frame within a chunk exit a model of the
+    models blended back to front under its key layout; a hidden model, an
+    order flip (the moved model takes rank 0), a resize, and two
+    compressions (edits kept; pods and frame bit for bit a fresh viewer's;
+    half SH within the golden gate; f32 covariance keeps what f16 flushes)."""
+    n, (w, h) = 100_000, (960, 544)
+    models = [make_random_scene(n, seed=i, extent=1.5, scale_range=(0.004, 0.02))
+              for i in range(3)]
+    v = card.config2_viewer(models, dev, size=(w, h))
+    order = v.model_order()
+    cfg_m = v.merged_config(3)
+    assert len(order) == 3 and cfg_m.model_bits == 2
+    v.fused = False
+    staged = v.render()
+    v.fused = True
+    merged = v.render()
+    _frame_ok(merged, w, h, 0.2)
+    assert_golden_close(_u8(staged.cpu()), _u8(merged.cpu()))
+    entries, cfg = v.merged_entries(order)
+    assert cfg == cfg_m and entries.shape[0] == 3 * n * cfg_m.max_dup
+    del entries
+    acc = None
+    for key in order:   # back to front, "over"
+        img = v._composite(v._model_entries(key, cfg_m, 0, False), cfg_m)
+        acc = img if acc is None else img + (1.0 - img[..., 3:4]) * acc
+    assert float((merged - over_background(acc, v.background)).abs().max()) <= 4 * EXIT_TOL
+
+    v.models["m1"].visible = False
+    assert v.merged_config(len(v.model_order())).model_bits == 1
+    assert float((v.render() - merged).abs().max()) > 0.05
+    v.models["m1"].visible = True
+    far = order[0]
+    old = v.models[far].transform
+    v.update_model_transform(far, dataclasses.replace(old, pos=np.float32([0.0, 0.0, -3.0])))
+    flipped = v.model_order()
+    assert flipped[-1] == far and flipped != order
+    ent, _ = v.merged_entries(flipped)
+    rows = n * cfg_m.max_dup
+    k_far = ent[flipped.index(far) * rows:(flipped.index(far) + 1) * rows, 0].to(torch.int64)
+    k_far = k_far[k_far != -1] & 0xFFFFFFFF
+    assert k_far.numel() > 0 and bool(((k_far >> cfg_m._rank_shift) & 3 == 0).all())
+    del ent, k_far
+    assert float((v.render() - merged).abs().max()) > 0.05
+    v.update_model_transform(far, old)
+    assert v.model_order() == order
+    cam = CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -7))
+    v.resize(640, 360)
+    v.update_camera(cam)
+    _frame_ok(v.render(), 640, 360, 0.2)
+    v.resize(w, h)
+    v.update_camera(cam)
+
+    flags_before = [v.models[k].buffers.edit_flags for k in order]
+    cov_half = [cov3d_components(v.models[k].buffers.pod) for k in order]
+    for comp in (Compressions(ShCompression.HALF, Cov3dCompression.HALF),
+                 Compressions(ShCompression.HALF, Cov3dCompression.SINGLE)):
+        v.set_compressions(comp)
+        assert v.comp == comp and all(v.models[k].buffers.comp == comp for k in order)
+        assert all(v.models[k].buffers.edit_flags is f for k, f in zip(order, flags_before))
+        repacked = v.render()
+        _frame_ok(repacked, w, h, 0.2)
+        assert not torch.equal(repacked, v.render(show_unedited=True))
+        fresh = card.config2_viewer(models, dev, comp=comp, size=(w, h))
+        assert all(torch.equal(t, fresh.models[k].buffers.pod[name]) for k in order
+                   for name, t in v.models[k].buffers.pod.items())
+        assert torch.equal(repacked, fresh.render())
+        del fresh
+        if comp.cov3d == Cov3dCompression.HALF:
+            assert_golden_close(_u8(repacked.cpu()), _u8(merged.cpu()))
+            assert float((repacked - merged).abs().mean()) < 1.0 / 255.0
+        else:   # the f16 decoder reads subnormals (terms under 6.1e-5) as 0
+            assert sum(int(((a == 0) & (b != 0)).sum()) for k, half in zip(order, cov_half)
+                       for a, b in zip(half, cov3d_components(v.models[k].buffers.pod))) > 0
+
+
+def test_v1_and_row_major_frames_on_card(dev):
+    """The v1 chain (K8 -> `build_tile_lists` (K2) -> `build_entry_planes` ->
+    `composite_tiles` (K6)) and the row-major v2 frame (K1 -> K2 ->
+    `composite_tiles_v2(transposed=False, mxu=True)`): each launches its
+    kernels once (K3 its two passes) and meets the golden gate against the
+    same chain on the CPU."""
+    w, h = 960, 540
+    g = make_random_scene(200_000, seed=0, extent=2.0, scale_range=(0.004, 0.02))
+    cam = CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -6))
+    view, proj = cam.view(), cam.projection(w / h)
+    cfg = TileConfig(w, h, tile=32, max_dup=4)
+    comp = Compressions()
+    words = flat_pod_to_words(pack_gaussians(g, comp), comp)
+    frames = {}
+    for where in (torch.device("cpu"), dev):   # the card's last: its launch counts are read
+        pod = pod_to_tensors(words, where)
+        kernels.reset_launch_counts()
+        pre = preprocess_fused(pod, comp, view, proj, EYE, w, h)
+        v1 = composite_tiles(build_entry_planes(pre, build_tile_lists(pre, cfg), cfg), cfg)
+        v1_launches = dict(kernels.LAUNCHES)
+        kernels.reset_launch_counts()
+        rows = composite_tiles_v2(build_sorted_entries_fused(pod, comp, cfg, view, proj, EYE),
+                                  cfg, transposed=False, mxu=True)
+        rows_launches = dict(kernels.LAUNCHES)
+        frames[where.type] = [over_background(x, (0.0, 0.0, 0.0)).cpu() for x in (v1, rows)]
+        del pod, pre
+    assert v1_launches == _only(preprocess=1, sort=1, composite_v1=1)
+    assert rows_launches == _only(fused=1, sort=1, composite=composite_launches(32))
+    for card, cpu in zip(frames["cuda"], frames["cpu"]):
+        _frame_ok(card, w, h, 0.2)
+        assert_golden_close(_u8(card), _u8(cpu))
+
+
+def _masked_session(dev, g, w, h):
+    """An app session on `dev`: `g` streamed in from PLY bytes, the camera at
+    (0, 0, -6) on the origin, config 4's mask through the command bus."""
+    buf = io.BytesIO()
+    write_ply(buf, g)
+    s = GaussianSplattingSession(width=w, height=h, device=dev, tile=32, max_dup=4)
+    s.camera.control.target = np.zeros(3, np.float32)
+    s.camera.control.pos = np.array([0.0, 0.0, -6.0], np.float32)
+    s.open_model("scene.ply", io.BytesIO(buf.getvalue()))
+    while s.loader is not None:
+        s._drain_loader()
+    unmasked = s.viewer.render(s.camera.control)
+    for kind, pos, scale in card.CONFIG4_SHAPES:
+        s.mask.add_shape(MaskShape(kind=MaskShapeKind(kind), pos=np.array(pos, np.float32),
+                                   scale=np.full(3, scale, np.float32)))
+    s.mask.op_code = card.CONFIG4_OP
+    s.send_command(SceneCommand(SceneCommandKind.EVALUATE_MASK, mask_op=s.mask.parse_op()))
+    s._drain_commands()
+    return s, s.viewer.models["scene.ply"], unmasked
+
+
+def test_session_mask_export_reset_and_gesture_on_card(dev):
+    """BASELINE config 4's session: the scene streamed in whole; the masked
+    frame within 1e-5 of the kept splats alone; two hits (K4 twice) make a
+    pair whose line the next frame draws; the masked export holds the kept
+    splats; Reset renders the unmasked frame; a rect gesture launches K4
+    once and a committed edit follows the selection."""
+    w, h = 960, 544
+    g = make_random_scene(1_500_000, seed=0, extent=2.0, scale_range=(0.004, 0.02))
+    s, m, unmasked = _masked_session(dev, g, w, h)
+    assert len(m.buffers) == g.count and np.array_equal(m.gaussians.pos, g.pos)
+    bits = m.buffers.download_mask().astype(bool)
+    kept = int(bits.sum())
+    assert 0 < kept < g.count
+    img = s.update()
+    _frame_ok(img, w, h, 0.01)
+    cam = s.camera.control
+    masked = s.viewer.render(cam)
+    only = Viewer(g.select(bits), w, h, tile=32, max_dup=4, device=dev).render(cam)
+    assert float((masked - only).abs().max()) <= 1e-5
+    assert not torch.equal(masked, unmasked)
+    del only
+
+    kernels.reset_launch_counts()
+    hits = ((w * 0.5, h * 0.5), (w * 0.552, h * 0.533))   # config 4's, at this size
+    assert [s.locate_hit(px, 0, i) for i, px in enumerate(hits)] == [True, True]
+    assert kernels.LAUNCHES == _only(geometry=2)
+    dist = s.measurement.hit_pairs[0].distance()
+    assert math.isfinite(dist) and dist > 0
+    assert int(((s.update() - img).abs().amax(dim=-1) > 0).sum()) > 0
+    out = io.BytesIO()
+    export_models(s.viewer, out, {"scene.ply": ExportChoice(with_edit=False, with_mask=True)})
+    header = read_ply_header(io.BytesIO(out.getvalue()))
+    assert header.count == kept and len(out.getvalue()) == header.header_len + kept * 248
+
+    s.send_command(SceneCommand(SceneCommandKind.EVALUATE_MASK, mask_op=None))   # Reset
+    s._drain_commands()
+    assert bool(m.buffers.mask.all())
+    reset = s.viewer.render(cam)
+    assert torch.equal(reset, unmasked)
+    s.action = Action.SELECTION
+    s.toolset.set_use_texture(False)
+    s.toolset.start(QueryToolset.RECT, QuerySelectionOp.SET, (w * 0.21, h * 0.19))
+    s.toolset.update_pos((w * 0.73, h * 0.74))
+    kernels.reset_launch_counts()
+    s.end_selection_gesture()
+    assert kernels.LAUNCHES == _only(geometry=1)
+    assert 0 < int(m.buffers.selection.sum()) < g.count
+    s.selection.edit = SelectionEdit(hsv=(0.3, 1.0, 1.0), alpha=0.5)
+    s.commit_selection_edit()
+    flags = m.buffers.download_edits()[0]
+    sel = m.buffers.download_selection().astype(bool)
+    assert bool((flags[sel] != 0).all()) and not (flags[~sel] != 0).any()
+    s.selection.edit = None
+    assert not torch.equal(s.update(), reset)
+
+
+def test_viewer_server_over_http_on_card(dev):
+    """The web viewer over HTTP (an ephemeral port on 127.0.0.1) on a masked
+    session on the card: the page, `/state`'s counts, the mask over
+    `/command`, a half-scale frame, the first-person camera, a rect
+    selection over `/event` (K4 once) and a committed edit, the masked
+    export, and a change of compression over `/set`, after which a dirty
+    frame launches K1, K2, K3's two passes and K9 (the gizmos) once."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from wgpu_3dgs_viewer_app_tpu_torch.app.server import ASSETS
+    from wgpu_3dgs_viewer_app_tpu_torch.utils import human_readable_size
+
+    w, h = 640, 368
+    g = make_random_scene(300_000, seed=0, extent=2.0, scale_range=(0.004, 0.02))
+    s, m, _ = _masked_session(dev, g, w, h)
+    kept = int(m.buffers.mask.sum())
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(ViewerServer(s)))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+
+    def call(path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}{path}",
+                                     data=data, method="GET" if data is None else "POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.read()
+
+    def ok(path, body):
+        assert json.loads(call(path, body)) == {"ok": True}, (path, body)
+
+    def size_of(blob):   # (width, height) from a baseline JPEG's SOF0 header
+        i = blob.index(b"\xff\xc0")
+        return int.from_bytes(blob[i + 7:i + 9], "big"), int.from_bytes(blob[i + 5:i + 7], "big")
+
+    try:
+        assert call("/") == (ASSETS / "index.html").read_bytes()
+        model = json.loads(call("/state"))["models"]["scene.ply"]
+        assert model["count"] == model["loaded"] == g.count
+        assert model["compressed_size"] == human_readable_size(
+            s.compressions.compressed_size(g.count))
+        ok("/command", {"cmd": "evaluate_mask"})
+        assert int(m.buffers.mask.sum()) == kept
+        blob = call("/frame.jpg?quality=85")
+        assert size_of(call("/frame.jpg?quality=85&scale=0.5")) == (w // 2, h // 2)
+        ok("/event", {"type": "set_control", "control": "first_person"})
+        ok("/event", {"type": "look", "dx": 40.0, "dy": -10.0})
+        ok("/event", {"type": "move", "z": 1.0, "x": 0.3, "dt": 0.2})
+        assert json.loads(call("/state"))["camera"]["control"] == "first_person"
+        assert call("/frame.jpg?quality=85") != blob
+        ok("/event", {"type": "set_control", "control": "orbit", "arm": 6.0})
+        assert json.loads(call("/state"))["camera"]["control"] == "orbit"
+
+        ok("/set", {"action": "selection",
+                    "selection": {"edit": {"hsv": [0.6, 1.0, 1.0], "alpha": 0.8}}})
+        call("/frame.jpg?quality=85")
+        kernels.reset_launch_counts()
+        (x0, y0), (x1, y1) = (w * 0.21, h * 0.19), (w * 0.73, h * 0.74)
+        for kind, x, y in (("start", x0, y0), ("move", x1, y1), ("end", x1, y1)):
+            ok("/event", {"type": f"action_{kind}", "x": x, "y": y})
+        assert kernels.LAUNCHES == _only(geometry=1)
+        assert 0 < int(m.buffers.selection.sum()) < g.count
+        ok("/command", {"cmd": "commit_edit"})
+        ply = call("/export", {"choices": {"scene.ply": {"with_mask": True}}})
+        assert read_ply(io.BytesIO(ply)).count == kept
+
+        ok("/set", {"compressions": {"sh": "half"}})
+        assert s.compressions.sh.value == "half"
+        kernels.reset_launch_counts()
+        repacked = call("/frame.jpg?quality=85")
+        assert kernels.LAUNCHES == _only(fused=1, sort=1, composite=composite_launches(32),
+                                         overlay=1)
+        assert repacked[:2] == b"\xff\xd8" and size_of(repacked) == (w, h)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+
+
+def test_native_codec_on_card_host_matches_numpy(dev):
+    """The native codec builds on the card's host, the default
+    `pack_gaussians` runs it, and its pod meets numpy's within
+    `tests/test_native.py`'s tolerances: positions equal, colour and norm8
+    SH bytes within one step, SH ranges within rtol 1e-6, covariance within
+    rtol 1e-3."""
+    from wgpu_3dgs_viewer_app_tpu_torch.data import native
+
+    g = make_random_scene(500_000, seed=0, extent=2.0, scale_range=(0.004, 0.02))
+    comp = Compressions()
+    assert native.available()
+    got, ref = pack_gaussians(g, comp), pack_gaussians(g, comp, use_native=False)
+    direct = native.pack_gaussians_native(g, comp)
+    assert set(got) == set(direct) == set(ref)
+    assert all(np.array_equal(got[k], direct[k]) for k in got)
+    assert np.array_equal(got["pos"], ref["pos"])
+    for k in ("color0", "sh"):   # bytes
+        d = got[k].view(np.uint8).astype(np.int16) - ref[k].view(np.uint8)
+        assert int(np.abs(d).max()) <= 1, k
+    for k in ("sh_mn", "sh_span"):
+        assert np.allclose(got[k], ref[k], rtol=1e-6, atol=0), k
+    assert np.allclose(got["cov3d"].astype(np.float32), ref["cov3d"].astype(np.float32),
+                       rtol=1e-3, atol=1e-6)
+
+
+# --- the kernels at the main path's shapes: BASELINE configs 1-3 (card.py's scenes) ------
+
+@pytest.fixture(scope="module")
+def config1():
+    """Config 1 on the card: (comp, pod, cfg, view, proj, count) of the
+    6M-splat scene at 1920x1080, tile 32, max_dup 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g, cam = card.config1_scene()
+    comp, pod = card.pod_tensors(g, "cuda")
+    return (comp, pod, TileConfig(1920, 1080, tile=32, max_dup=4), cam.view(),
+            cam.projection(1920 / 1080), g.count)
+
+
+def test_frontend_sort_and_composite_at_config1_match_plain(config1):
+    """At config 1's shapes: K1 ungated and with every gate slot for slot,
+    K2 row for row against the stable plain sort (24M slots), and K3 within
+    K67_TOL of its plain version in the Horner and the quadratic-basis form
+    (`transposed` False and True equal) and at tiles 64 and 128."""
+    comp, pod, cfg, view, proj, n = config1
+    args = (pod, comp, cfg, view, proj, EYE)
+    ent = enumerate_entries_fused(*args)
+    assert compare_entries(ent, enumerate_entries_plain(*args), cfg)["live_a"] > n // 2
+    gates = card.gates(n, ent.device)
+    gated = enumerate_entries_fused(*args, **gates)
+    compare_entries(gated, enumerate_entries_plain(*args, **gates), cfg)
+    assert not torch.equal(gated, ent)
+    del gated, gates
+    se = sort_entries(ent, cfg)
+    compare_sorted(se, sort_entries_plain(ent, cfg), stable=True)
+    del ent
+    for mxu in (False, True):
+        got = composite_tiles_v2(se, cfg, transposed=not mxu, mxu=mxu)
+        err = float((got - composite_tiles_plain_v2(se, cfg, mxu=mxu)).abs().max())
+        assert err <= K67_TOL, (mxu, err)
+    assert torch.equal(got, composite_tiles_v2(se, cfg, transposed=True, mxu=True))
+    del se
+    for tile in (64, 128):
+        cfg_t = TileConfig(1920, 1080, tile=tile, max_dup=4)
+        se = sort_entries(enumerate_entries_fused(pod, comp, cfg_t, view, proj, EYE), cfg_t)
+        err = float((composite_tiles_v2(se, cfg_t) - composite_tiles_plain_v2(se, cfg_t))
+                    .abs().max())
+        assert err <= K67_TOL, (tile, err)
+
+
+def test_staged_and_v1_routes_at_config1_match_plain(config1):
+    """At config 1's shapes: K8 bit for bit the plain preprocess, K5's
+    entries from each equal and K5 slot for slot its plain version; the v1
+    chain's K2 (at the v1 key) row for row the stable plain sort and K6
+    within K67_TOL of its plain version."""
+    comp, pod, cfg, view, proj, n = config1
+    args = (pod, comp, view, proj, EYE, 1920, 1080)
+    pre, pre_p = preprocess_fused(*args), preprocess(*args)
+    assert compare_preprocess_bits(pre, pre_p)["valid"] > n // 2
+    ent = enumerate_entries_from_pre(pre, cfg)
+    assert torch.equal(ent, enumerate_entries_from_pre(pre_p, cfg))
+    del pre_p
+    compare_entries(ent, enumerate_entries_from_pre_plain(pre, cfg), cfg)
+    del ent
+    slots = tile_list_entries(pre, cfg)
+    compare_sorted(sort_entries(slots, cfg, shift=cfg.depth_bits),
+                   sort_entries_plain(slots, cfg, shift=cfg.depth_bits), stable=True)
+    del slots
+    planes = build_entry_planes(pre, build_tile_lists(pre, cfg), cfg)
+    err = float((composite_tiles(planes, cfg) - composite_tiles_plain(planes, cfg)).abs().max())
+    assert err <= K67_TOL, err
+
+
+def test_geometry_and_gated_kernels_at_config3_match_plain(dev):
+    """At config 3's shapes (2M splats): K4 ungated and gated (mask, edits)
+    against its plain version; with the step's gates (its rect selection on
+    K4's geometry, selection edit and highlight, a mask and edits) K8 bit
+    for bit the plain preprocess, K5's entries from each equal, and K1 slot
+    for slot its plain version."""
+    g, cam = card.config3_scene()
+    comp, pod = card.pod_tensors(g, dev)
+    cfg = TileConfig(1920, 1080, tile=32, max_dup=4)
+    view, proj = cam.view(), cam.projection(1920 / 1080)
+    args = (pod, comp, view, proj, EYE, 1920, 1080)
+    gates = card.gates(g.count, dev, seed=5)
+    gates = {k: gates[k] for k in ("mask_bits", "edit")}
+    for kw in ({}, gates):
+        compare_preprocess(preprocess_geometry_fused(*args, **kw),
+                           preprocess_geometry_plain(*args, **kw))
+    sel_edit, highlight = card.selection_pods()
+    gates.update(selection_bits=select_rect(preprocess_geometry_fused(*args), *card.CONFIG3_RECT),
+                 selection_edit=sel_edit.as_arrays(), highlight_rgba=np.float32(highlight.rgba))
+    pre, pre_p = preprocess_fused(*args, **gates), preprocess(*args, **gates)
+    compare_preprocess_bits(pre, pre_p)
+    assert not torch.equal(pre.col_r, preprocess_fused(*args).col_r)
+    assert torch.equal(enumerate_entries_from_pre(pre, cfg),
+                       enumerate_entries_from_pre(pre_p, cfg))
+    del pre, pre_p
+    compare_entries(enumerate_entries_fused(pod, comp, cfg, view, proj, EYE, **gates),
+                    enumerate_entries_plain(pod, comp, cfg, view, proj, EYE, **gates), cfg)
+
+
+def test_ranked_kernels_at_config2_match_plain(dev):
+    """One config-2 model (1M splats, its transform and edits, 1920x1088,
+    model_bits 2): K8 bit for bit the plain preprocess, K5's entries from
+    each equal; K5 at ranks 0 and 2 and K1 at rank 1 slot for slot their
+    plain versions, every live key carrying its rank."""
+    comp, pod, cfg, view, proj, mmat, edit = card.config2_model(1, dev)
+    args = (pod, comp, view, proj, mmat, *card.CONFIG2_SIZE)
+    pre, pre_p = preprocess_fused(*args, edit=edit), preprocess(*args, edit=edit)
+    compare_preprocess_bits(pre, pre_p)
+    assert torch.equal(enumerate_entries_from_pre(pre, cfg, model_rank=2),
+                       enumerate_entries_from_pre(pre_p, cfg, model_rank=2))
+    del pre_p
+    k5 = (enumerate_entries_from_pre, enumerate_entries_from_pre_plain, (pre, cfg), {})
+    k1 = (enumerate_entries_fused, enumerate_entries_plain, (pod, comp, cfg, view, proj, mmat),
+          {"edit": edit})
+    for rank, (kernel, plain, a, kw) in ((0, k5), (2, k5), (1, k1)):
+        got = kernel(*a, model_rank=rank, **kw)
+        compare_entries(got, plain(*a, model_rank=rank, **kw), cfg)
+        keys = got[:, 0].to(torch.int64) & 0xFFFFFFFF
+        assert bool(((keys[keys != SENTINEL] >> cfg._rank_shift) & 3 == rank).all()), rank

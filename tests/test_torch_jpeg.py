@@ -7,7 +7,7 @@ blocks and MCUs), the file equal byte for byte as well, the resize knob
 within 2 levels of Pillow's `resize` (f32 weights against Pillow's 22-bit
 fixed point, in each of two rounded passes), a well-formed stream, an
 encoder that runs with no image library, and no module of the port nor
-`chip_smoke.py` that imports JAX, the JAX package or PIL."""
+of the card scripts that imports JAX, the JAX package or PIL."""
 
 import io
 import os
@@ -150,11 +150,14 @@ def test_jpeg_encodes_without_an_image_library():
     assert int(r.stdout) > 100
 
 
-def test_port_and_chip_smoke_import_no_jax_nor_pil():
-    """No module of the port, nor `chip_smoke.py`, imports JAX, the JAX
-    package or PIL."""
+def test_port_and_card_tools_import_no_jax_nor_pil():
+    """No module of the port, nor a script the card runs (`scripts/card.py`
+    and the scripts beside it that use it or drive several cards), imports
+    JAX, the JAX package or PIL."""
     pkg = os.path.join(REPO, "wgpu_3dgs_viewer_app_tpu_torch")
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "scripts", f) for f in ("card.py", "ab_port_kernels.py",
+                                                        "profile_port_frame.py",
+                                                        "sharded_ranks.py")]
     for root, _, names in os.walk(pkg):
         files += [os.path.join(root, f) for f in sorted(names) if f.endswith(".py")]
     assert len(files) > 50

@@ -42,7 +42,7 @@ from wgpu_3dgs_viewer_app_tpu_torch.parallel.render_sharded import (Mesh, _clamp
 from wgpu_3dgs_viewer_app_tpu_torch.viewer import render_frame
 
 # An image whose tiles stop at their 128-entry chunk exits may lack up to
-# the remaining transmittance, 1/255 a channel (chip_smoke.EXIT_TOL).
+# the remaining transmittance, 1/255 a channel.
 EXIT_TOL = 1.0 / 255.0 + 1e-5
 EYE = np.eye(4, dtype=np.float32)
 CFG = TileConfig(64, 64, tile=16, max_dup=8)

@@ -1,6 +1,10 @@
-"""Port entry sort (plain version of kernel K2) against the JAX Pallas sort
-chain (compaction -> block sort -> merge levels, interpret mode) and the
-JAX tile edges: live keys exact, per-key payload multisets equal."""
+"""Port entry sort (plain version of kernel K2) against the JAX package's
+entry sort on its plain path (`sort_entries_interleaved(impl="xla")`, a
+`lax.sort`) and the JAX tile edges: live keys exact, per-key payload
+multisets equal. The JAX package's own tests hold its Pallas sort chain
+(compaction -> block sort -> merge levels) to `lax.sort`:
+`tests/test_compact.py::test_merge_sort_with_compact_matches_lax` and
+`tests/test_sort.py::test_merge_sort_interpret`."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,7 +13,7 @@ import torch
 
 import _torch_cpu  # noqa: F401  (one torch thread per test process)
 from wgpu_3dgs_viewer_app_tpu.ops import binning as jbin
-from wgpu_3dgs_viewer_app_tpu.ops.sort import merge_sort
+from wgpu_3dgs_viewer_app_tpu.ops.sort import sort_entries_interleaved
 from wgpu_3dgs_viewer_app_tpu_torch.ops import SENTINEL, SortedEntries, TileConfig
 from wgpu_3dgs_viewer_app_tpu_torch.ops import sort_entries, sort_entries_plain
 from wgpu_3dgs_viewer_app_tpu_torch.testing import compare_sorted
@@ -35,13 +39,13 @@ def _as_tensor(ent, device="cpu"):
     return torch.from_numpy(np.ascontiguousarray(ent).view(np.int32)).to(device)
 
 
-def test_sort_matches_jax_merge_sort():
-    """E = 65536 with ~44% sentinels against `merge_sort(interpret=True,
-    compact=True)`: the live prefix, its payload multisets and the tile
-    edges agree."""
+def test_sort_matches_jax_sort():
+    """E = 65536 with ~44% sentinels against the JAX package's
+    `sort_entries_interleaved(impl="xla")`: the live prefix, its payload
+    multisets and the tile edges agree."""
     ent = _entries(65536, 0.44)
-    ks, s1, s2, s3 = merge_sort(*(jnp.asarray(ent[:, i]) for i in range(4)), interpret=True,
-                                compact=True)
+    ks, _, s1, s2, s3 = sort_entries_interleaved(*(jnp.asarray(ent[:, i]) for i in range(4)),
+                                                 impl="xla")
     ks = np.asarray(ks)
     n_live = int((ent[:, 0] != SENTINEL).sum())
     assert (ks[n_live:] == SENTINEL).all() and (ks[:n_live] != SENTINEL).all()

@@ -19,7 +19,7 @@
 // ones torch's CUDA ops call (logf, sqrtf, rsqrtf, exp2f, log2f), so kernel
 // and plain version agree to the bit on almost every entry.
 //
-// What bounds it on an H100: memory, by the bound `chip_smoke.py` reports.
+// What bounds it on an H100: memory (its bytes over the card's bandwidth).
 // Per splat it reads 12 B of position, 4 B of colour, 12-24 B of covariance
 // and up to 180 B of SH (48 B at norm8, with 8 B of range), and writes
 // 16 * D bytes of entries; the gates add 1 B of mask, 1 B of selection and

@@ -1,4 +1,4 @@
-"""Comparisons shared by the tests and `chip_smoke.py`: front-end entries
+"""Comparisons shared by the CPU tests and the card tests: front-end entries
 against entries, sorted entries against sorted entries, per-splat
 preprocess outputs against preprocess outputs (within a tolerance, or bit
 for bit).
